@@ -17,13 +17,35 @@ and raises on any failure. Phases, one line each:
    .run`` over 2^20 random 32-bit pairs against numpy's exact products,
    then the same with ``pack=false``;
 6. the resident matrix-vector product ``Engine.matvec`` of a
-   (2^20 x 8) matrix at N = 32 against numpy's exact ``A @ x``;
-7. one JSON line describing each kernel;
-8. ``{"ok": true, "device": {...}}`` as the last line.
+   (2^20 x 8) matrix at N = 32 against numpy's exact ``A @ x``; then
+   the co-scheduled default (``matvec`` with no ``k``: the engine's
+   policy, k = min(coschedule_k, E) MACs fused into one K1 pass) of a
+   (2^15 x 8) matrix at N = 8, 16 and 32, products against numpy and
+   cycles against the host interpreter's, and one ``compile_group``
+   pass (two MACs, a multiplier, a RIME multiplier) against the host
+   interpreter;
+7. K3 (bit-serial matmul) against its plain version at M = 256 tokens:
+   bit-exact at (M, K, N) = (256, 256, 4096) with integer w in [0, 255],
+   and within tolerance with float w at one deepseek-7b layer's
+   projection shapes (attn.q 4096 x 4096, ffn gate+up 4096 x 22016,
+   ffn down 11008 x 4096), with CUDA-event timings of K3, its plain
+   version and ``torch.matmul``;
+8. ``Engine.linear(mode="pim")`` on the card at those shapes, with and
+   without K3, against a host float64 oracle, and the K3 path also
+   against K3's plain version on the layer's own quantized operands;
+9. ``Engine.ragged_linear(mode="pim")`` at deepseek-moe-16b's expert
+   widths (D 2048, F 1408, 64 experts, 256 tokens x top-6) against a
+   host float64 per-segment oracle;
+10. one JSON line describing each kernel;
+11. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
-path of phases 5 and 6 and read just after; comparison launches of
-phases 3 and 4 do not count.
+path of phases 5, 6 and 8 and read just after (one K3 launch per
+``use_pallas=True`` call, one K1 launch per fused pass); comparison launches of
+phases 3, 4 and 7 do not count. Float32 products run without TF32
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
+and the library yardstick are full float32.
 """
 from __future__ import annotations
 
@@ -41,6 +63,11 @@ N_BITS = 32
 ROWS = 1 << 20
 WORDS = ROWS // 32
 MATVEC_ELEMS = 8
+COSCHED_ROWS = 1 << 15
+COSCHED_BITS = (8, 16, 32)
+# A heterogeneous co-scheduled group: two MACs, a multiplier and a RIME
+# multiplier in one crossbar pass.
+GROUP = [("mac", 8, 2), ("multpim", 4), ("rime", 4)]
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bandwidth, and the float32 rate outside the tensor cores, used here for
 # the kernels' 32-bit bitwise lane operations.
@@ -48,8 +75,28 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 K1_REPLACES = "src/repro/kernels/crossbar_step.py:130"
 K2_REPLACES = "src/repro/kernels/crossbar_step.py:62"
+K3_REPLACES = "src/repro/kernels/bitserial_matmul.py:39"
 SOURCE = "src/repro_torch/csrc/crossbar_step.cu"
+K3_SOURCE = "src/repro_torch/csrc/bitserial_matmul.cu"
 NO_LIBRARY = "no single PyTorch call computes a crossbar program"
+# The PIM-linear slice: M tokens through one deepseek-7b layer's
+# projections (d_model 4096, d_ff 11008; gate and up fused), and the
+# deepseek-moe-16b expert GEMM (d_model 2048, expert d_ff 1408, 64
+# experts, top-6).
+LINEAR_BITS = 8
+TOKENS = 256
+LINEAR_SHAPES = {"attn.q": (4096, 4096), "ffn.gate_up": (4096, 22016),
+                 "ffn.down": (11008, 4096)}
+EXACT_SHAPE = (256, 4096)            # (K, N): 256 * 255 * 255 < 2^24
+MOE = {"d": 2048, "f": 1408, "experts": 64, "top_k": 6}
+# K3's tolerance against its plain version with float w: the
+# reference's rtol 1e-4 / atol 5e-3, with rtol taken against the scale
+# of the summed terms, |x| @ |w|. At K = 4096 and 11008 cancellation
+# leaves some outputs near 0, where the float32 order alone moves a
+# result by more than 1e-4 of itself; the bound of a float32 sum scales
+# with its terms, not with its result.
+K3_RTOL = 1e-4
+K3_ATOL = 5e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -78,6 +125,279 @@ def time_ms(fn, warmup: int, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
     return statistics.median(times)
+
+
+def k3_bound_ms(m: int, k: int, n: int) -> "tuple[float, str]":
+    """Least time for K3 at (m, k, n): 2 m k n flops at the float32 rate
+    outside the tensor cores, or x, w and out moved once over HBM
+    (int32 and float32, 4 bytes each), whichever is larger. The TPU's
+    plane form would do n_bits times the flops."""
+    by_ops = 2 * m * k * n / OPS_PER_S * 1e3
+    by_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def k3_int_tol(k: int, n_bits: int) -> float:
+    """Largest error, in integer units, of the float32 K3 path of
+    Engine.linear against exact integers: each addition in the product
+    and the zero-point correction rounds by at most half an ulp of the
+    largest value it can reach (2 K (2^n - 1)^2 bounds every partial sum
+    of the product and of the correction), and there are fewer than
+    K + n_bits + 3 of them on any order of the sums."""
+    ulp = float(np.spacing(np.float32(2 * k * (2 ** n_bits - 1) ** 2)))
+    return (k + n_bits + 3) * ulp
+
+
+def host_oracle(xq, wq) -> np.ndarray:
+    """float64 ``(xq - zx) @ (wq - zw) * sx * sw`` on the host, from the
+    card's own quantized operands (float64 BLAS: exact integer sums)."""
+    xi = xq.q.cpu().numpy().astype(np.float64) - xq.zero
+    wi = wq.q.cpu().numpy().astype(np.float64) - wq.zero
+    return ((xi @ wi) * xq.scale.cpu().numpy().astype(np.float64)
+            * wq.scale.cpu().numpy().astype(np.float64))
+
+
+def k3_phase(dev, tokens: int, exact_shape, shapes, seed: int) -> dict:
+    """Phase 7: K3 against its plain version (and float64) at the exact
+    shape with integer w, and at ``shapes`` with float w; timings of
+    K3, the plain version and ``torch.matmul`` at each."""
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
+    from repro_torch.kernels.ref import bitserial_matmul_ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k, n = exact_shape
+    x = torch.randint(0, 2 ** LINEAR_BITS, (tokens, k), generator=gen,
+                      device=dev, dtype=torch.int32)
+    w = torch.randint(0, 2 ** LINEAR_BITS, (k, n), generator=gen,
+                      device=dev, dtype=torch.int32).float()
+    got = bitserial_matmul(x, w, LINEAR_BITS)
+    want = bitserial_matmul_ref(x, w, LINEAR_BITS)
+    exact = (x.double() @ w.double()).float()
+    check(torch.equal(got, want) and torch.equal(got, exact),
+          "K3 is not bit-exact with integer w in the exact range")
+    phase("K3", shape=f"{tokens}x{k}x{n}", w="int[0,255]", exact=True)
+    rows = []
+    err = 0.0
+    for name, (k, n) in shapes.items():
+        x = torch.randint(0, 2 ** LINEAR_BITS, (tokens, k), generator=gen,
+                          device=dev, dtype=torch.int32)
+        w = torch.randn((k, n), generator=gen, device=dev)
+        got = bitserial_matmul(x, w, LINEAR_BITS)
+        want = bitserial_matmul_ref(x, w, LINEAR_BITS)
+        exact = x.double() @ w.double()
+        terms = x.double().abs() @ w.double().abs()
+        diff = (got.double() - want.double()).abs()
+        worst = float((diff / (K3_ATOL + K3_RTOL * terms)).max())
+        check(worst <= 1.0, f"K3 disagrees with its plain version at "
+                            f"{name}: {worst} of the tolerance")
+        elementwise = int((diff > K3_ATOL + K3_RTOL
+                           * want.double().abs()).sum())
+        err = max(err, float(diff.max()))
+        ms = time_ms(lambda: bitserial_matmul(x, w, LINEAR_BITS), 3, 20)
+        plain = time_ms(lambda: bitserial_matmul_ref(x, w, LINEAR_BITS),
+                        2, 10)
+        lib = time_ms(lambda: torch.matmul(x.float(), w), 3, 20)
+        bms, by = k3_bound_ms(tokens, k, n)
+        row = {"name": name, "shape": [tokens, k, n], "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+               "bound_by": by, "max_abs_err": float(diff.max()),
+               "k3_err_vs_f64": float((got.double() - exact).abs().max()),
+               "plain_err_vs_f64": float((want.double() - exact)
+                                         .abs().max()),
+               "outside_elementwise_tol": elementwise,
+               "worst_share_of_tol": worst}
+        rows.append(row)
+        phase("K3", **{key: row[key] for key in row if key != "name"},
+              layer=name)
+        del x, w, got, want, exact, terms, diff
+    return {"rows": rows, "max_abs_err": err}
+
+
+def coschedule_phase(rng) -> int:
+    """Phase 6, co-scheduled: ``matvec`` with the default k on the card
+    (one K1 launch per fused pass of k MACs) against numpy's products
+    and the host interpreter's cycle count, and one ``compile_group``
+    pass against the host interpreter. Returns the K1 launches."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import crossbar_run_packed
+    card, host = Engine("torch:pack=true"), Engine("numpy")
+    total = 0
+    for n in COSCHED_BITS:
+        k = card.effective_coschedule_k("mac", n)
+        check(k >= 2, f"co-scheduling is off at N={n} (k={k})")
+        A = rng.integers(0, 1 << (n - 2), (COSCHED_ROWS, MATVEC_ELEMS))
+        x = rng.integers(0, 1 << (n - 2), MATVEC_ELEMS)
+        card.compile_batch("mac", n, k)      # compile outside the window
+        crossbar_run_packed.launches = 0
+        t0 = time.perf_counter()
+        res, cycles = card.matvec(A, x, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = crossbar_run_packed.launches
+        passes = -(-MATVEC_ELEMS // k)
+        check(launches == passes, f"default-k matvec at N={n} launched "
+                                  f"K1 {launches} times (want {passes})")
+        want = (A.astype(object) @ x.astype(object)) & ((1 << 2 * n) - 1)
+        check(all(int(r) == int(w) for r, w in zip(res, want)),
+              f"default-k matvec at N={n} disagrees with numpy")
+        _, host_cycles = host.matvec(A[:64], x, n)
+        _, chain_cycles = host.matvec(A[:64], x, n, k=1)
+        check(cycles == host_cycles < chain_cycles,
+              f"default-k matvec at N={n}: {cycles} cycles, host "
+              f"{host_cycles}, k=1 chain {chain_cycles}")
+        total += launches
+        phase("coscheduled_matvec", n=n, shape=f"{COSCHED_ROWS}x"
+              f"{MATVEC_ELEMS}", k=k, exact=True, k1_launches=launches,
+              modeled_cycles=cycles, chain_cycles=chain_cycles,
+              wall_s=round(wall, 3))
+    rows = COSCHED_ROWS
+    inputs = [{name: rng.integers(0, 2, (rows, 8), dtype=np.uint8)
+               for name in ("a", "b", "un", "s_lo", "c_lo", "c_lo_n")}
+              for _ in range(2)]
+    inputs += [{"a": rng.integers(0, 16, rows),
+                "b": rng.integers(0, 16, rows)} for _ in range(2)]
+    gex = card.compile_group(GROUP)
+    crossbar_run_packed.launches = 0
+    got = gex.run(inputs)
+    launches = crossbar_run_packed.launches
+    check(launches == 1, f"compile_group pass launched K1 {launches} times")
+    want = host.compile_group(GROUP).run(inputs)
+    for slot, (g, w) in enumerate(zip(got, want)):
+        check(set(g) == set(w) and all(
+            np.array_equal(np.asarray(g[o], dtype=object),
+                           np.asarray(w[o], dtype=object)) for o in w),
+            f"compile_group slot {slot} disagrees with the host interpreter")
+    check(all(int(v) == int(p) * int(q) for v, p, q in zip(
+        got[2]["out"], inputs[2]["a"], inputs[2]["b"])),
+        "compile_group multiplier slot disagrees with numpy")
+    total += launches
+    phase("compile_group", group=GROUP, rows=rows, k=gex.k, exact=True,
+          k1_launches=launches)
+    return total
+
+
+def linear_phase(eng, dev, tokens: int, shapes, seed: int) -> dict:
+    """Phase 8: Engine.linear(mode="pim") on the card, exact path and K3
+    path, against the host float64 oracle; K3 launches counted from 0
+    over the phase."""
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
+    from repro_torch.kernels.ref import bitserial_matmul_ref
+    from repro_torch.pim.quant import quantize
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bitserial_matmul.launches = 0
+    calls = 0
+    for name, (k, n) in shapes.items():
+        x = torch.randn((tokens, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        y = eng.linear(x, w, n_bits=LINEAR_BITS, mode="pim")
+        sync(dev)
+        t_exact = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y3 = eng.linear(x, w, n_bits=LINEAR_BITS, mode="pim",
+                        use_pallas=True)
+        sync(dev)
+        t_k3 = time.perf_counter() - t0
+        calls += 1
+        check(y.device == x.device and y3.device == x.device,
+              "Engine.linear left the card")
+        xq = quantize(x, LINEAR_BITS)
+        wq = quantize(w, LINEAR_BITS, axis=0)
+        oracle = host_oracle(xq, wq)
+        y = y.cpu().numpy().astype(np.float64)
+        y3 = y3.cpu().numpy().astype(np.float64)
+        check(y.shape == y3.shape == (tokens, n)
+              and np.isfinite(y).all() and np.isfinite(y3).all(),
+              f"Engine.linear at {name}: wrong shape or non-finite values")
+        rel = np.abs(y - oracle) / np.maximum(np.abs(oracle), 1e-300)
+        exact_ok = np.all(np.abs(y - oracle) <= 1e-6 * np.abs(oracle))
+        check(exact_ok, f"Engine.linear pim at {name} is off the float64 "
+                        f"oracle by rtol {float(rel.max())}")
+        scale = (xq.scale.cpu().numpy().astype(np.float64)
+                 * wq.scale.cpu().numpy().astype(np.float64))
+        tol = k3_int_tol(k, LINEAR_BITS) * scale + 1e-6 * np.abs(oracle)
+        k3_err = np.abs(y3 - oracle)
+        check(np.all(k3_err <= tol),
+              f"Engine.linear pim use_pallas=True at {name} is outside "
+              f"its float32 bound: {float((k3_err / tol).max())} of it")
+        # The tight check: Engine.linear's zero-point formula over the
+        # plain K3 on the layer's own operands, within phase 7's rtol
+        # 1e-4 of the summed terms' scale (|xq| @ |wf|) sx sw.
+        wf = wq.q.float()
+        twin = bitserial_matmul_ref(xq.q, wf, LINEAR_BITS)
+        corr = (xq.zero * wf.sum(0, keepdim=True)
+                + wq.zero * xq.q.float().sum(1, keepdim=True)
+                - k * xq.zero * wq.zero)
+        twin = ((twin - corr) * xq.scale * wq.scale).double().cpu().numpy()
+        terms = (xq.q.double() @ wf.double()).cpu().numpy() * scale
+        twin_err = np.abs(y3 - twin)
+        twin_share = float((twin_err / (K3_RTOL * terms)).max())
+        check(twin_share <= 1.0,
+              f"Engine.linear pim use_pallas=True at {name} is off the "
+              f"plain K3 path: {twin_share} of rtol 1e-4 of its terms")
+        del wf, twin, terms
+        phase("linear", layer=name, shape=f"{tokens}x{k}x{n}",
+              exact_rtol=float(rel.max()),
+              k3_max_abs_err=float(k3_err.max()),
+              k3_err_share_of_bound=float((k3_err / tol).max()),
+              k3_err_vs_plain_share_of_tol=twin_share,
+              k3_err_share_of_max_y=float(k3_err.max()
+                                          / np.abs(oracle).max()),
+              exact_wall_ms=round(t_exact * 1e3, 3),
+              k3_wall_ms=round(t_k3 * 1e3, 3))
+        del x, w, xq, wq
+    launches = bitserial_matmul.launches
+    check(launches == calls, f"Engine.linear(use_pallas=True) made "
+                             f"{launches} K3 launches in {calls} calls")
+    return {"launches": launches, "calls": calls}
+
+
+def ragged_phase(eng, dev, tokens: int, moe: dict, seed: int) -> None:
+    """Phase 9: Engine.ragged_linear(mode="pim") against a host float64
+    per-segment oracle, with seeded expert counts that sum to T."""
+    from repro_torch.pim.quant import quantize
+    rng = np.random.default_rng(seed)
+    e, d, f = moe["experts"], moe["d"], moe["f"]
+    t = tokens * moe["top_k"]
+    counts = rng.multinomial(t, np.full(e, 1.0 / e))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((t, d), generator=gen, device=dev)
+    we = torch.randn((e, d, f), generator=gen, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    y = eng.ragged_linear(xs, we, counts.tolist(), n_bits=LINEAR_BITS,
+                          mode="pim")
+    sync(dev)
+    wall = time.perf_counter() - t0
+    check(y.device == xs.device and tuple(y.shape) == (t, f),
+          "ragged_linear: wrong device or shape")
+    y = y.cpu().numpy().astype(np.float64)
+    xq, wq = quantize(xs, LINEAR_BITS), quantize(we, LINEAR_BITS)
+    xi = xq.q.cpu().numpy().astype(np.float64) - xq.zero
+    wi = wq.q.cpu().numpy().astype(np.float64) - wq.zero
+    sc = float(xq.scale) * float(wq.scale)
+    worst = 0.0
+    lo = 0
+    for ex, c in enumerate(counts):
+        want = (xi[lo:lo + c] @ wi[ex]) * float(xq.scale) * float(wq.scale)
+        got = y[lo:lo + c]
+        check(np.all(np.abs(got - want) <= 1e-6 * np.abs(want)),
+              f"ragged_linear expert {ex} is off the float64 oracle")
+        if c:
+            worst = max(worst, float((np.abs(got - want)
+                                      / np.maximum(np.abs(want), sc))
+                                     .max()))
+        lo += c
+    phase("ragged_linear", rows=t, d=d, f=f, experts=e,
+          counts_min=int(counts.min()), counts_max=int(counts.max()),
+          rtol=worst, wall_ms=round(wall * 1e3, 3))
+
+
+def sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the host)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -119,6 +439,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch import obs
     from repro_torch.compiler.cache import compile_cached
     from repro_torch.engine import Engine
@@ -259,12 +581,28 @@ def main() -> None:
           exact=True, k1_launches=k1_mv, device_reads=1,
           modeled_cycles=cycles, wall_s=round(wall, 3),
           passes_per_s=round(passes / wall, 3))
-    check(main_launches["K1"] > 0 and main_launches["K2"] > 0,
+    main_launches["K1"] += coschedule_phase(rng)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 7. K3 vs its twin ----
+    k3 = k3_phase(dev, TOKENS, EXACT_SHAPE, LINEAR_SHAPES, seed=7)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 8. Engine.linear ----
+    lin = linear_phase(Engine(), dev, TOKENS, LINEAR_SHAPES, seed=8)
+    main_launches["K3"] = lin["launches"]
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------- 9. Engine.ragged_linear ----
+    ragged_phase(Engine(), dev, TOKENS, MOE, seed=9)
+    torch.cuda.empty_cache()
+    check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # -------------------------------------------------- 7. kernels line ----
+    # ------------------------------------------------- 10. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
+    k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")
     kernels = [
         {"name": "K1 crossbar_run_packed (bit-plane packed)",
          "route": "cuda", "source": SOURCE, "replaces": K1_REPLACES,
@@ -280,6 +618,16 @@ def main() -> None:
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None, "library_note": NO_LIBRARY,
          "shape": f"multpim N={N_BITS}, {ROWS} rows x {c} columns"},
+        {"name": "K3 bitserial_matmul (bit-serial fixed-point matmul)",
+         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": main_launches["K3"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": k3_main["library_ms"],
+         "library_note": "torch.matmul(x.float(), w), TF32 off",
+         "shape": "x {0}x{1} int32 @ w {1}x{2} float32 ({3})".format(
+             *k3_main["shape"], k3_main["name"]),
+         "shapes": k3["rows"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

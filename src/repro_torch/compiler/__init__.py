@@ -17,6 +17,11 @@ Sits between the hand-written program builders (``core/multpim.py``,
   construction of the packed tables) fuse into one kernel step, so the
   packed executors loop over ``O(T/factor)`` steps
   (:func:`fuse_macrocycles`);
+* :mod:`.coschedule` — multi-program co-scheduling: a partition-range
+  allocator relocates K independent programs into disjoint partition
+  and column ranges of one wide crossbar and merges their cycle
+  streams, so one backend pass serves K programs
+  (:meth:`repro_torch.engine.Engine.compile_batch`);
 * :mod:`.verify` — differential bit-exactness proof vs ``run_numpy``;
 * :mod:`.spec` — :class:`OpSpec`, the canonical hashable identity of a
   compiled program (sorted/frozen flags + pass key + content hash);
@@ -24,9 +29,9 @@ Sits between the hand-written program builders (``core/multpim.py``,
   memoization so each spec compiles once per process and the executors
   receive pre-packed, identity-stable tables.
 
-This is the port's own copy of ``repro.compiler``. Co-scheduling
-(``coschedule.py``) and the disk cache (``diskcache.py``,
-``serialize.py``) are not ported yet: the cache here is memory-only.
+This is the port's own copy of ``repro.compiler``. The disk cache
+(``diskcache.py``, ``serialize.py``) is not ported yet: the cache here
+is memory-only.
 
 The public device/executable facade over this pipeline is
 :mod:`repro_torch.engine` — new code should compile through an
@@ -35,6 +40,8 @@ directly.
 """
 from .cache import (CompiledEntry, ProgramCache, cache_stats, clear_cache,
                     compile_cached, register_builder)
+from .coschedule import (CapacityError, PartitionAllocator, Placement,
+                         column_budget_counts, coschedule, relocate)
 from .depgraph import DepGraph
 from .liveness import dead_sets, live_segments
 from .macrocycle import (DEFAULT_MACRO_FACTOR, MacroTables,
@@ -47,6 +54,8 @@ from .verify import VerifyReport, verify_equivalence, verify_or_raise
 __all__ = [
     "optimize", "PassConfig", "OptStats", "fuse_ops",
     "list_schedule", "build_op_graph", "critical_path",
+    "coschedule", "relocate", "PartitionAllocator", "Placement",
+    "CapacityError", "column_budget_counts",
     "DepGraph", "live_segments", "dead_sets",
     "fuse_macrocycles", "MacroTables", "DEFAULT_MACRO_FACTOR",
     "verify_equivalence", "verify_or_raise", "VerifyReport",

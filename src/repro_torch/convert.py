@@ -1,9 +1,11 @@
-"""Carry compiled tables and packed state across packages.
+"""Carry compiled tables, packed state and quantized operands across
+packages.
 
-This system has no weights: what crosses between the JAX reference
-package and the port is the compiled program tables and the bit-plane
-packed crossbar state. Both cross as plain numpy arrays, so nothing here
-imports the reference package.
+This system has no trained weights: what crosses between the JAX
+reference package and the port is the compiled program tables, the
+bit-plane packed crossbar state and the quantized operands of the PIM
+linear layers. All cross as plain numpy arrays, so nothing here imports
+the reference package.
 
 * :func:`packed_from_arrays` rebuilds a
   :class:`~repro_torch.core.executor.PackedProgram` from the four dense
@@ -11,6 +13,9 @@ imports the reference package.
 * :func:`words_to_torch` / :func:`words_to_numpy` move packed words
   between ``np.uint32`` and the port's int32 tensors, bitcasting at the
   numpy boundary (torch on the CPU has no ``~`` or ``<<`` for uint32).
+* :func:`qtensor_from_arrays` builds a
+  :class:`~repro_torch.pim.quant.QTensor` from another package's
+  quantized ``q`` and ``scale``.
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import PackedProgram
+from repro_torch.pim.quant import QTensor
 
-__all__ = ["packed_from_arrays", "words_to_torch", "words_to_numpy"]
+__all__ = ["packed_from_arrays", "words_to_torch", "words_to_numpy",
+           "qtensor_from_arrays"]
 
 
 def packed_from_arrays(gate_id, in_cols, out_col,
@@ -60,3 +67,15 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     if words.dtype != torch.int32:
         raise TypeError(f"expected int32 words, got {words.dtype}")
     return words.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def qtensor_from_arrays(q, scale, n_bits: int, zero: int) -> QTensor:
+    """A :class:`~repro_torch.pim.quant.QTensor` on the CPU from
+    quantized values ``q`` (integers in ``[0, 2^n_bits)``, as int32) and
+    their float32 ``scale`` (scalar or per channel)."""
+    q = np.asarray(q)
+    if q.size and (q.min() < 0 or q.max() >= 2 ** n_bits):
+        raise ValueError(f"q outside [0, 2^{n_bits})")
+    return QTensor(torch.from_numpy(q.astype(np.int32)),
+                   torch.from_numpy(np.array(scale, np.float32)),
+                   int(n_bits), int(zero))

@@ -20,16 +20,19 @@ CUDA.
 """
 from .backends import (DEFAULT_MACRO, Backend, NumpyBackend, TorchBackend,
                        backend_names, register_backend, resolve_backend)
-from .engine import OP_KINDS, Engine, get_engine
-from .executable import ExecCost, Executable, ResidentExecutable
+from .engine import (DEFAULT_COSCHEDULE_K, OP_KINDS, Engine, GroupSpec,
+                     get_engine)
+from .executable import (BatchedExecutable, ExecCost, Executable,
+                         GroupedExecutable, ResidentExecutable)
 
 # Re-exported so callers can build specs/cache keys without touching
 # repro_torch.compiler directly.
 from repro_torch.compiler.spec import OpSpec
 
 __all__ = [
-    "Engine", "get_engine", "OP_KINDS", "Executable", "ResidentExecutable",
-    "ExecCost", "OpSpec",
+    "Engine", "get_engine", "OP_KINDS", "DEFAULT_COSCHEDULE_K", "GroupSpec",
+    "Executable", "GroupedExecutable", "BatchedExecutable",
+    "ResidentExecutable", "ExecCost", "OpSpec",
     "Backend", "NumpyBackend", "TorchBackend",
     "register_backend", "resolve_backend", "backend_names", "DEFAULT_MACRO",
 ]

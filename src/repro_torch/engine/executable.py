@@ -8,15 +8,26 @@ inputs are converted with :func:`repro_torch.core.bits.to_bits` and,
 when *every* input arrived as integers, outputs come back as exact
 Python ints via :func:`~repro_torch.core.bits.from_bits`.
 
+:class:`GroupedExecutable` (from :meth:`repro_torch.engine.Engine.
+compile_group`) is the co-scheduled variant: K independent operand sets
+— possibly of *different* ops (a MAC next to a multiplier next to a
+wider MAC) — scatter into disjoint partition/column ranges of one fused
+program, one backend pass serves all K, ``cost()`` reports cycles *per
+program* instead of per pass, and ``op_costs()`` breaks the fused pass
+down into one accounting row per co-scheduled op.
+:class:`BatchedExecutable` (:meth:`repro_torch.engine.Engine.
+compile_batch`) is its homogeneous special case: K copies of one
+verified program. Both run through :meth:`Executable.run`, so on a
+packed CUDA backend the fused pass is one K1 launch.
+
 :class:`ResidentExecutable` (from :meth:`repro_torch.engine.Engine.
 resident`) keeps ``rows`` carry-save MAC chains on the device between
-passes. The co-scheduled ``GroupedExecutable``/``BatchedExecutable`` of
-the reference package come with the serve slice of the port.
+passes.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Union
+from dataclasses import dataclass, replace as _dc_replace
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
@@ -26,7 +37,8 @@ from repro_torch.core.costmodel import CrossbarSpec
 
 from .backends import Backend, ResidentIndex, resolve_backend
 
-__all__ = ["Executable", "ResidentExecutable", "ExecCost"]
+__all__ = ["Executable", "GroupedExecutable", "BatchedExecutable",
+           "ResidentExecutable", "ExecCost"]
 
 
 @dataclass(frozen=True)
@@ -204,6 +216,169 @@ class Executable:
                     bits = final[:, cols].copy()
                     out[name] = from_bits(bits) if all_ints else bits
                 return out
+
+
+class GroupedExecutable:
+    """K co-scheduled programs — not necessarily the same op — served by
+    one backend pass.
+
+    Produced by :meth:`repro_torch.engine.Engine.compile_group`. Wraps an
+    :class:`Executable` over the fused program
+    (:func:`repro_torch.compiler.coschedule.coschedule` of K relocated
+    verified programs in disjoint partition/column ranges): ``run``
+    scatters K operand sets into the fused input names
+    (``g{i}/<name>``, where slot ``i``'s expected names are *its own*
+    base program's), executes **one** ``run_state`` call, and gathers K
+    result sets back out. ``cost()`` reports ``programs=K``;
+    ``op_costs()`` adds one row per co-scheduled slot (label, own
+    standalone cycles, column/partition footprint) so heterogeneous
+    groups stay auditable op by op.
+    """
+
+    def __init__(self, inner: Executable,
+                 placements: "List[Placement]",
+                 base_entries: "List[CompiledEntry]",
+                 labels: Optional[List[str]] = None):
+        if len(placements) != len(base_entries):
+            raise ValueError("placements/base_entries length mismatch")
+        self.inner = inner
+        self.placements = placements
+        self.base_entries = list(base_entries)
+        self.labels = (list(labels) if labels is not None
+                       else [str(e.key) for e in base_entries])
+        self._in_names = [list(e.program.input_map) for e in base_entries]
+        self._out_names = [list(e.program.output_map) for e in base_entries]
+
+    # ---------------------------------------------------------- views ----
+    @property
+    def k(self) -> int:
+        """Number of co-scheduled programs (slots) in the fused pass."""
+        return len(self.placements)
+
+    @property
+    def program(self) -> "Program":
+        """The fused program (all K slots)."""
+        return self.inner.program
+
+    @property
+    def packed(self) -> "PackedProgram":
+        """The fused program's dense executor tables."""
+        return self.inner.packed
+
+    @property
+    def n_cycles(self) -> int:
+        """Cycles of one fused pass (== the longest member's count for
+        aligned streams; never more than the sum)."""
+        return self.inner.n_cycles
+
+    @property
+    def backend(self) -> Backend:
+        """The backend the fused pass executes on."""
+        return self.inner.backend
+
+    def __repr__(self) -> str:
+        return (f"{type(self).__name__}(k={self.k}, "
+                f"[{', '.join(dict.fromkeys(self.labels))}], "
+                f"backend={self.inner.backend.name}, "
+                f"{self.n_cycles} cycles/pass)")
+
+    # ----------------------------------------------------------- cost ----
+    def cost(self) -> ExecCost:
+        """The fused pass's cost, amortized over its ``k`` programs."""
+        one = self.inner.cost()
+        return _dc_replace(one, programs=self.k)
+
+    def op_costs(self) -> List[Dict]:
+        """Per-op accounting rows for the fused pass: one dict per slot
+        with the slot's label, its *standalone* cycle count (what a
+        dedicated pass would have cost), and its column/partition
+        footprint inside the shared crossbar."""
+        rows: List[Dict] = []
+        for label, pl, ent in zip(self.labels, self.placements,
+                                  self.base_entries):
+            rows.append({
+                "label": label,
+                "op": ent.key.kind,
+                "n": ent.key.n,
+                "own_cycles": ent.program.n_cycles,
+                "fused_cycles": self.n_cycles,
+                "cols": pl.n_cols,
+                "partitions": pl.n_partitions,
+            })
+        return rows
+
+    # ------------------------------------------------------------ run ----
+    def run(self, batches: Sequence[Mapping[str, Union[np.ndarray, list]]],
+            *, backend: Union[None, str, Backend] = None
+            ) -> List[Dict[str, np.ndarray]]:
+        """Execute K operand sets in one crossbar pass.
+
+        ``batches`` is a length-K sequence; element ``i`` maps slot
+        ``i``'s base-program input names to ``(rows,)`` integers or
+        ``(rows, n_bits)`` bit planes (all K share the same row count).
+        Returns the K output dicts in order, bit-identical to K
+        independent :meth:`Executable.run` calls of the member ops.
+        (The reference's ``recorder`` trace hook comes with the device
+        hierarchy.)
+        """
+        if len(batches) != self.k:
+            raise ValueError(f"expected {self.k} operand sets, "
+                             f"got {len(batches)}")
+        with obs.span("exec.group_run", program=self.program.name,
+                      k=self.k, backend=self.inner.backend.name,
+                      modeled_cycles=self.n_cycles):
+            with obs.span("exec.scatter", k=self.k):
+                fused: Dict[str, Union[np.ndarray, list]] = {}
+                group_ints: List[bool] = []
+                for i, b in enumerate(batches):
+                    pfx = self.placements[i].prefix
+                    missing = sorted(set(self._in_names[i]) - set(b))
+                    if missing:
+                        raise KeyError(f"operand set {i}: missing inputs "
+                                       f"{missing}")
+                    for name in self._in_names[i]:
+                        fused[f"{pfx}{name}"] = b[name]
+                    # Same integer-vs-bit-plane rule as
+                    # Executable._marshal, per group: the fused pass
+                    # marshals outputs as ints only when *every* group is
+                    # integer-form, so an all-int group mixed with a
+                    # bit-plane group is converted back here to stay
+                    # bit-identical to K independent runs.
+                    group_ints.append(all(np.asarray(b[name]).ndim <= 1
+                                          for name in self._in_names[i]))
+            out = self.inner.run(fused, backend=backend)
+            with obs.span("exec.gather", k=self.k):
+                results: List[Dict[str, np.ndarray]] = []
+                for i in range(self.k):
+                    pfx = self.placements[i].prefix
+                    grp = {}
+                    for name in self._out_names[i]:
+                        val = out[f"{pfx}{name}"]
+                        if group_ints[i] and not all(group_ints):
+                            val = from_bits(val)
+                        grp[name] = val
+                    results.append(grp)
+            return results
+
+
+class BatchedExecutable(GroupedExecutable):
+    """K co-scheduled *copies of one op* served by one backend pass —
+    the homogeneous special case of :class:`GroupedExecutable`
+    (:meth:`repro_torch.engine.Engine.compile_batch`). Its single pass
+    has exactly the base program's cycle count, so
+    ``cost().cycles_per_program`` is the cycles-per-MAC figure.
+    """
+
+    def __init__(self, inner: Executable, k: int,
+                 placements: "List[Placement]", base_entry: "CompiledEntry"):
+        super().__init__(inner, placements, [base_entry] * k,
+                         labels=[base_entry.program.name] * k)
+        self.base_entry = base_entry      # the single verified program
+
+    def __repr__(self) -> str:
+        return (f"BatchedExecutable(k={self.k}, {self.base_entry.key}, "
+                f"backend={self.inner.backend.name}, "
+                f"{self.n_cycles} cycles/pass)")
 
 
 class ResidentExecutable:

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the crossbar kernels (the yardsticks).
+"""Plain PyTorch versions of the port's kernels (the yardsticks).
 
 The twins of ``repro.kernels.ref``: the CPU tests hold them against the
 JAX package, and ``chip_smoke.py`` holds the CUDA kernels of
-:mod:`repro_torch.kernels.crossbar_step` against them on the card.
+:mod:`repro_torch.kernels.crossbar_step` and
+:mod:`repro_torch.kernels.bitserial_matmul` against them on the card.
 
 * :func:`crossbar_run_ref` — the per-cell scan: state is ``(rows, C)``
   uint8 {0,1}, one column per cell, one loop step per cycle.
@@ -12,6 +13,8 @@ JAX package, and ``chip_smoke.py`` holds the CUDA kernels of
   for uint32; every gate evaluates word-wide with bitwise ops, and the
   loop runs over the macro-fused tables
   (:mod:`repro_torch.compiler.macrocycle`).
+* :func:`bitserial_matmul_ref` — the bit-plane matmul
+  ``sum_j 2^j (X_j @ W)`` in float32.
 
 Cycle rules, as in the reference: OR in the cycle's init words, gather
 every operand from the pre-cycle state, evaluate, then AND-write. Only
@@ -30,6 +33,7 @@ from repro_torch.core.executor import PackedProgram
 from repro_torch.core.isa import Gate
 
 __all__ = ["crossbar_run_ref", "crossbar_run_ref_packed",
+           "bitserial_matmul_ref",
            "packed_scan_body", "packed_device_tables", "gate_eval_packed",
            "PackedTables"]
 
@@ -162,3 +166,17 @@ def crossbar_run_ref_packed(state_words: torch.Tensor,
 
 
 crossbar_run_ref_packed.calls = 0
+
+
+def bitserial_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                         n_bits: int = 8) -> torch.Tensor:
+    """Bit-plane decomposition twin of K3: ``x`` (M, K) int32, ``w``
+    (K, N) float32 -> float32 (M, N) ``sum_j 2^j (X_j @ W)`` over the
+    ``n_bits`` low bit planes ``X_j = (x >> j) & 1`` of ``x``."""
+    w = w.to(torch.float32)
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(n_bits):
+        plane = ((x >> j) & 1).to(torch.float32)
+        acc += (2.0 ** j) * plane @ w
+    return acc

@@ -202,15 +202,11 @@ def test_torch_backend_policy():
 
 
 def test_unported_paths_raise_not_implemented():
+    """Fault detection and injection are the paths still to port; the
+    co-scheduling and PIM-linear paths have their parity tests in
+    tests/test_torch_coschedule.py and tests/test_torch_pim.py."""
     eng = Engine(PORT[0])
-    a = np.ones((2, 4), dtype=np.int64)
-    with pytest.raises(NotImplementedError, match="serve"):
-        eng.inner_product(a, a, 8, k=2)
-    with pytest.raises(NotImplementedError, match="serve"):
-        eng.compile_batch("mac", 8, 4)
-    with pytest.raises(NotImplementedError, match="serve"):
-        eng.compile_group([("mac", 8)])
     with pytest.raises(NotImplementedError, match="faults"):
         eng.resident(8, rows=4, detect=True)
-    with pytest.raises(NotImplementedError, match="PIM-linear"):
-        eng.linear(None, None)
+    with pytest.raises(NotImplementedError, match="faults"):
+        resolve_backend("torch:device=cpu,faults=sa0@1e-3")
