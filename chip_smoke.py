@@ -10,7 +10,9 @@ and raises on any failure. Phases, one line each:
 3. K1 (packed kernel) against its plain PyTorch version at macro 1 and
    8, bit-exact, at 32,768 words (2^20 crossbar rows) for the
    ``multpim``, ``multpim_mac``, ``stage`` and ``recomb`` N = 32 tables,
-   with CUDA-event timings;
+   with CUDA-event timings, the bytes bound and the shared-memory floor;
+   then on the fused table of two co-scheduled N = 32 MACs at 2^15
+   words;
 4. K2 (unpacked kernel) against its plain version on ``multpim`` N = 32
    over 2^20 rows;
 5. the front door: ``Engine("torch:pack=true").compile("multpim", 32)
@@ -69,10 +71,17 @@ COSCHED_BITS = (8, 16, 32)
 # multiplier in one crossbar pass.
 GROUP = [("mac", 8, 2), ("multpim", 4), ("rime", 4)]
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
-# bandwidth, and the float32 rate outside the tensor cores, used here for
-# the kernels' 32-bit bitwise lane operations.
+# bandwidth, the float32 rate outside the tensor cores (used here for the
+# kernels' 32-bit bitwise lane operations and for K3's former CUDA-core
+# design), and the dense bf16 tensor-core rate (K3's split products).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+SMS = 132
+# K1's shared-memory floor: per real op, 3 operand gathers, the output
+# cell's load and its store, each one warp-wide access (one wavefront) per
+# 32 words; an SM serves one wavefront a clock.
+K1_SMEM_ACCESSES_PER_OP = 5
 K1_REPLACES = "src/repro/kernels/crossbar_step.py:130"
 K2_REPLACES = "src/repro/kernels/crossbar_step.py:62"
 K3_REPLACES = "src/repro/kernels/bitserial_matmul.py:39"
@@ -127,15 +136,23 @@ def time_ms(fn, warmup: int, reps: int) -> float:
     return statistics.median(times)
 
 
-def k3_bound_ms(m: int, k: int, n: int) -> "tuple[float, str]":
-    """Least time for K3 at (m, k, n): 2 m k n flops at the float32 rate
-    outside the tensor cores, or x, w and out moved once over HBM
-    (int32 and float32, 4 bytes each), whichever is larger. The TPU's
-    plane form would do n_bits times the flops."""
-    by_ops = 2 * m * k * n / OPS_PER_S * 1e3
+def k3_bound_ms(m: int, k: int, n: int,
+                n_bits: int = LINEAR_BITS) -> "tuple[float, str]":
+    """Least time for K3 at (m, k, n): the split's bf16 products,
+    ceil(n_bits / 8) x 3 x 2 m k n flops, at the dense bf16 tensor-core
+    rate, or x, w and out moved once over HBM (int32 and float32, 4 bytes
+    each), whichever is larger. The TPU's plane form would do n_bits
+    times 2 m k n."""
+    by_ops = -(-n_bits // 8) * 3 * 2 * m * k * n / BF16_FLOPS_PER_S * 1e3
     by_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                           "operations")
+
+
+def k3_cuda_core_bound_ms(m: int, k: int, n: int) -> float:
+    """The bound of K3's former CUDA-core design: 2 m k n float32 flops
+    at 67 TFLOP/s (kept beside the new bound for comparison)."""
+    return 2 * m * k * n / OPS_PER_S * 1e3
 
 
 def k3_int_tol(k: int, n_bits: int) -> float:
@@ -207,7 +224,9 @@ def k3_phase(dev, tokens: int, exact_shape, shapes, seed: int) -> dict:
                "outside_elementwise_tol": elementwise,
                "worst_share_of_tol": worst}
         rows.append(row)
+        # The former CUDA-core design's bound, in the phase line only.
         phase("K3", **{key: row[key] for key in row if key != "name"},
+              cuda_core_bound_ms=k3_cuda_core_bound_ms(tokens, k, n),
               layer=name)
         del x, w, got, want, exact, terms, diff
     return {"rows": rows, "max_abs_err": err}
@@ -416,6 +435,15 @@ def gate_ops(gate_id: np.ndarray) -> int:
     return sum(int((gate_id == int(g)).sum()) * c for g, c in cost.items())
 
 
+def smem_floor_ms(packed, words: int, sm_clock_hz: float) -> float:
+    """K1's shared-memory floor for one pass over ``words``: the real
+    ops' warp-wide accesses (K1_SMEM_ACCESSES_PER_OP per op per 32
+    words) over SMS SMs at one a clock."""
+    real_ops = int((np.asarray(packed.gate_id) != 0).sum())
+    wavefronts = real_ops * K1_SMEM_ACCESSES_PER_OP * -(-words // 32)
+    return wavefronts / (SMS * sm_clock_hz) * 1e3
+
+
 def bound_ms(packed, items: int, cell_bytes: int) -> "tuple[float, str]":
     """Least time for one pass over ``items`` words (or rows): the
     larger of the state in and out over HBM (tables read once) and the
@@ -457,6 +485,10 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    sm_clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) * 1e6
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
@@ -489,12 +521,32 @@ def main() -> None:
         plain = time_ms(lambda: crossbar_run_ref_packed(st, packed, macro=8),
                         1, 3)
         bms, by = bound_ms(packed, WORDS, 4)
+        floor = smem_floor_ms(packed, WORDS, sm_clock_hz)
         k1_rows.append({"shape": [WORDS, c], "ms": ms, "plain_ms": plain,
                         "bound_ms": bms, "bound_by": by})
         phase("K1", program=name, words=WORDS, cols=c, exact=True,
               macro="1,8", ms=ms, plain_ms=plain, bound_ms=bms,
-              bound_by=by)
+              bound_by=by, smem_floor_ms=floor,
+              sm_clock_mhz=sm_clock_hz / 1e6)
         del st, got, want
+    # The fused table of two co-scheduled N = 32 MACs (C = 855, 64 ops a
+    # cycle): a comparison launch, outside the main path's counts.
+    fused = Engine("torch:pack=true").compile_batch("mac", N_BITS, 2).packed
+    c = fused.init_mask.shape[1]
+    st = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (COSCHED_ROWS, c), dtype=np.int64
+    ).astype(np.int32)).to(dev)
+    got = crossbar_run_packed(st, fused)
+    want = crossbar_run_ref_packed(st, fused)
+    torch.cuda.synchronize()
+    k1_err = max(k1_err, max_abs_err(got, want))
+    check(torch.equal(got, want), "K1 disagrees with its plain version on "
+                                  "the co-scheduled mac N=32 k=2 table")
+    ms = time_ms(lambda: crossbar_run_packed(st, fused), 3, 20)
+    phase("K1", program="mac N=32 x2 co-scheduled", words=COSCHED_ROWS,
+          cols=c, exact=True, ms=ms,
+          smem_floor_ms=smem_floor_ms(fused, COSCHED_ROWS, sm_clock_hz))
+    del st, got, want
 
     # ------------------------------------------------- 4. K2 vs its twin ----
     mp = programs["multpim"]

@@ -12,6 +12,11 @@ tensors it runs the plain PyTorch version
 the tensors lie on the CPU; there is no fallback from the card to the
 host.
 
+The kernel runs on the tensor cores in bf16 and stays exact: it cuts
+``x & (2^n - 1)`` into ``ceil(n/8)`` 8-bit pieces and ``w`` into three
+bf16 pieces by :func:`split_bf16x3`, whose sum is ``w`` exactly; every
+bf16 product is exact in float32.
+
 The reference's exactness assertion ``K * 2**n_bits < 2**24`` is kept
 as it is. It bounds only ``x``: with integer ``w`` up to ``2^n - 1`` the
 float32 sums are exact only while ``K (2^n - 1)^2 < 2^24``, and past
@@ -25,7 +30,30 @@ import torch
 
 from .ref import bitserial_matmul_ref
 
-__all__ = ["bitserial_matmul"]
+__all__ = ["bitserial_matmul", "split_bf16x3"]
+
+_HIGH16 = -65536          # int32 0xFFFF0000
+
+
+def _clear_low16(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` with the low 16 bits of its encoding cleared: the
+    bf16 that truncation of ``v`` gives, as a float32."""
+    return (v.view(torch.int32) & _HIGH16).view(torch.float32)
+
+
+def split_bf16x3(w: torch.Tensor) -> "tuple[torch.Tensor, ...]":
+    """The kernel's split of float32 ``w`` into three bf16 pieces, each
+    returned as float32: ``w0`` is ``w`` with the low 16 bits of its
+    encoding cleared (bf16 by truncation), ``w1`` the same of the exact
+    remainder ``w - w0``, and ``w2 = w - w0 - w1``, which has at most 8
+    significant bits left and so is a bf16 too. ``w0 + w1 + w2 == w``
+    exactly wherever ``w2`` stays in the normal range (|w| above about
+    1e-30); an integer ``w`` with |w| <= 256 is ``w0`` alone."""
+    w = w.to(torch.float32).contiguous()
+    w0 = _clear_low16(w)
+    r = w - w0
+    w1 = _clear_low16(r)
+    return w0, w1, r - w1
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -11,9 +11,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.compiler.cache import compile_cached  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
+from repro_torch.convert import packed_from_arrays  # noqa: E402
 from repro_torch.kernels.bitserial_matmul import bitserial_matmul  # noqa: E402
 from repro_torch.kernels.crossbar_step import (  # noqa: E402
-    crossbar_run, crossbar_run_packed)
+    crossbar_run, crossbar_run_packed, kernel_tables)
 from repro_torch.kernels.ref import (  # noqa: E402
     bitserial_matmul_ref, crossbar_run_ref, crossbar_run_ref_packed)
 
@@ -129,6 +130,121 @@ def test_k3_matches_plain_version(card, m, k, n, bits):
     got = bitserial_matmul(x.to(card), wf.to(card), bits).cpu()
     want = bitserial_matmul_ref(x, wf, bits)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-3)
+
+
+@pytest.mark.parametrize("m,k,n,bits", [
+    (64, 32, 64, 8),            # exactly one 64 x 64 tile, one K tile
+    (65, 33, 130, 8),           # ragged M, K and N on 64 x 64 tiles
+    (256, 64, 8200, 8),         # 128 x 64 tiles (128 x 128 gives 130)
+    (200, 72, 16500, 8),        # 128 x 128 tiles, ragged M, N and K
+    (70, 60, 130, 12),          # two 8-bit pieces of x
+    (33, 40, 47, 17)])          # three pieces, odd N: 4-byte copies
+def test_k3_tiles_and_pieces(card, m, k, n, bits):
+    """K3 on shapes that straddle its tiles and its x pieces: bit-exact
+    with integer w in [-h, h), h = 64 or less, so that every sum stays
+    under 2^24 and every order is exact. With float w, within rtol 1e-4
+    / atol 5e-3 of the plain version, the rtol taken against the scale of
+    the summed terms, |x| @ |w| (as chip_smoke.py does): at 12 and 17
+    bits the sums reach 1e4 to 1e6, where float32 rounding in any order
+    moves a result that cancels to near 0 by more than 5e-3."""
+    rng = np.random.default_rng(m + k + n)
+    h = max(1, min(64, 2 ** 24 // (k << bits)))
+    x = torch.from_numpy(rng.integers(0, 1 << bits, (m, k)).astype(np.int32))
+    wi = torch.from_numpy(rng.integers(-h, h, (k, n)).astype(np.float32))
+    wf = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    got = bitserial_matmul(x.to(card), wi.to(card), bits).cpu()
+    assert torch.equal(got, (x.long() @ wi.long()).float())
+    got = bitserial_matmul(x.to(card), wf.to(card), bits).cpu().double()
+    want = bitserial_matmul_ref(x, wf, bits).double()
+    terms = x.double().abs() @ wf.double().abs()
+    assert ((got - want).abs() <= 5e-3 + 1e-4 * terms).all()
+
+
+def test_k3_float_w_across_magnitudes(card):
+    """K3 with float w whose columns span 1e-20 to 1e20, and with x and
+    w at 4-byte offsets (the unaligned copy path): within rtol 1e-4 of
+    the summed terms |x| @ |w| of both the plain version and float64 —
+    the bf16 split is exact at every magnitude."""
+    rng = np.random.default_rng(5)
+    m, k, n = 40, 300, 96
+    x = rng.integers(0, 256, (m, k)).astype(np.int32)
+    w = (rng.standard_normal((k, n))
+         * 10.0 ** rng.uniform(-20, 20, n)).astype(np.float32)
+    xs = torch.zeros(m * k + 1, dtype=torch.int32)
+    ws = torch.zeros(k * n + 1, dtype=torch.float32)
+    xs[1:] = torch.from_numpy(x).flatten()
+    ws[1:] = torch.from_numpy(w).flatten()
+    xd = xs.to(card)[1:].view(m, k)
+    wd = ws.to(card)[1:].view(k, n)
+    assert xd.is_contiguous() and xd.data_ptr() % 16 != 0
+    got = bitserial_matmul(xd, wd, 8).cpu().double()
+    terms = torch.from_numpy(np.abs(x).astype(np.float64)
+                             @ np.abs(w).astype(np.float64))
+    exact = torch.from_numpy(x.astype(np.float64) @ w.astype(np.float64))
+    plain = bitserial_matmul_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                 8).double()
+    assert ((got - exact).abs() <= 1e-4 * terms).all()
+    assert ((got - plain).abs() <= 1e-4 * terms).all()
+
+
+@pytest.mark.parametrize("words", [1, 33, 45, 300])
+def test_k1_on_coscheduled_table(card, words):
+    """K1 on the fused co-scheduled table of two N = 32 MACs (C = 855,
+    64 ops a cycle), bit-identical to its plain version, at word counts
+    around its 32-word block, and with a smaller block."""
+    packed = Engine("torch:device=cpu").compile_batch("mac", 32, 2).packed
+    c = packed.init_mask.shape[1]
+    assert (c, packed.gate_id.shape[1]) == (855, 64)
+    assert not kernel_tables(packed, "cpu").held
+    rng = np.random.default_rng(words)
+    st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (words, c),
+                                       dtype=np.int64).astype(np.int32))
+    want = crossbar_run_ref_packed(st, packed)
+    assert torch.equal(crossbar_run_packed(st.to(card), packed).cpu(), want)
+    assert torch.equal(crossbar_run_packed(st.to(card), packed,
+                                           word_block=13).cpu(), want)
+
+
+def test_k1_long_steps(card):
+    """A cycle of 1,100 SETs, then one of 300 ops: steps longer than the
+    ring's smallest quarter (64 entries) take a larger ring;
+    bit-identical to the plain version."""
+    rng = np.random.default_rng(7)
+    t, m, c = 3, 300, 1200
+    gate = np.zeros((t, m), np.int32)
+    gate[1] = 1                                   # NOT
+    ins = np.zeros((t, m, 3), np.int32)
+    ins[1, :, 0] = rng.integers(0, 600, m)
+    out = np.full((t, m), c - 1, np.int32)
+    out[1] = 600 + np.arange(m)
+    init = np.zeros((t, c), bool)
+    init[0, :1100] = True
+    packed = packed_from_arrays(gate, ins, out, init)
+    st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (40, c),
+                                       dtype=np.int64).astype(np.int32))
+    assert torch.equal(crossbar_run_packed(st.to(card), packed).cpu(),
+                       crossbar_run_ref_packed(st, packed))
+
+
+def test_k1_held_table(card):
+    """A random table whose cycles read columns they write runs K1's held
+    path (all gathers, then the writes), bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(3)
+    t, m, c = 40, 12, 60
+    gate = rng.integers(0, 7, (t, m)).astype(np.int32)
+    ins = rng.integers(0, c - 1, (t, m, 3)).astype(np.int32)
+    out = np.stack([rng.permutation(c - 1)[:m] for _ in range(t)]
+                   ).astype(np.int32)
+    out[gate == 0] = c - 1
+    init = rng.random((t, c)) < 0.05
+    init[:, c - 1] = False
+    packed = packed_from_arrays(gate, ins, out, init)
+    assert kernel_tables(packed, "cpu").held
+    st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (70, c),
+                                       dtype=np.int64).astype(np.int32))
+    assert torch.equal(crossbar_run_packed(st.to(card), packed).cpu(),
+                       crossbar_run_ref_packed(st, packed))
 
 
 def test_linear_on_card(card):

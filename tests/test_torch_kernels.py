@@ -24,7 +24,8 @@ from repro.kernels.ref import (  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     packed_from_arrays, words_to_numpy, words_to_torch)
 from repro_torch.kernels.crossbar_step import (  # noqa: E402
-    crossbar_run, crossbar_run_packed, kernel_tables)
+    command_stream, crossbar_run, crossbar_run_packed, decode_records,
+    encode_records, kernel_tables)
 from repro_torch.kernels.ref import (  # noqa: E402
     crossbar_run_ref, crossbar_run_ref_packed)
 
@@ -194,17 +195,35 @@ def test_wrappers_reject_bad_state(bad):
 
 
 def test_kernel_tables_layout_and_memo():
-    """The kernels' slot tables and init CSR reproduce the packed
-    program's unfused tables, and are uploaded once per device."""
+    """The kernels' tables reproduce the packed program: K1's record
+    stream holds its real slots in order with per-cycle offsets, K2's
+    slot tables its unfused tables, and both share the init CSR; they
+    are uploaded once per device."""
     jp = compile_cached("multpim", 4).packed
     pp = _port(jp)
     tabs = kernel_tables(pp, "cpu")
     assert kernel_tables(pp, "cpu") is tabs
     s, m = tabs.gate.shape
     assert (s, m) == (pp.n_cycles, pp.max_ops) == jp.gate_id.shape
+    assert (tabs.n_slots, tabs.m_ops) == (s, m)
     assert np.array_equal(tabs.gate.numpy(), jp.gate_id)
     assert np.array_equal(tabs.in2.numpy(), jp.in_cols[..., 2])
     assert np.array_equal(tabs.out.numpy(), jp.out_col)
+    real = jp.gate_id != 0
+    records, op_ptr, max_ops, held = encode_records(pp)
+    assert tabs.n_records == records.size == int(real.sum())
+    assert (tabs.max_ops, tabs.held) == (max_ops, held)
+    assert np.array_equal(np.diff(op_ptr), real.sum(axis=1))
+    assert tabs.stream.dtype == torch.int64
+    stream, n_steps, max_step = command_stream(
+        records, op_ptr, tabs.init_ptr.numpy(), tabs.init_cols.numpy(),
+        tabs.n_cols)
+    assert np.array_equal(tabs.stream.numpy(), stream)
+    assert (tabs.n_steps, tabs.max_step) == (n_steps, max_step)
+    gate, ins, out, _ = decode_records(records)
+    assert np.array_equal(gate, jp.gate_id[real])
+    assert np.array_equal(out, jp.out_col[real])
+    assert np.array_equal(ins[:, 0], jp.in_cols[real][:, 0])
     ptr, cols = tabs.init_ptr.numpy(), tabs.init_cols.numpy()
     for i in range(s):
         assert sorted(cols[ptr[i]:ptr[i + 1]]) == list(
