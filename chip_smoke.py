@@ -12,12 +12,17 @@ and raises on any failure. Phases, one line each:
    ``multpim``, ``multpim_mac``, ``stage`` and ``recomb`` N = 32 tables,
    with CUDA-event timings, the bytes bound and the shared-memory floor;
    then on the fused table of two co-scheduled N = 32 MACs at 2^15
-   words;
+   words, and on two tables whose cycles write one column twice;
 4. K2 (unpacked kernel) against its plain version on ``multpim`` N = 32
-   over 2^20 rows;
+   over 2^20 rows, with CUDA-event timings, then on the co-scheduled
+   table at 2^15 rows, a held table at a ragged row count and the two
+   duplicate-write tables;
 5. the front door: ``Engine("torch:pack=true").compile("multpim", 32)
    .run`` over 2^20 random 32-bit pairs against numpy's exact products,
-   then the same with ``pack=false``;
+   then the same with ``pack=false``; each with its untraced wall, then
+   a second run with ``repro_torch.obs`` tracing on: its wall and span
+   seconds, and with ``pack=false`` the ``backend.kernel`` span (both
+   copies and K2) and the rest of that wall;
 6. the resident matrix-vector product ``Engine.matvec`` of a
    (2^20 x 8) matrix at N = 32 against numpy's exact ``A @ x``; then
    the co-scheduled default (``matvec`` with no ``k``: the engine's
@@ -461,6 +466,56 @@ def bound_ms(packed, items: int, cell_bytes: int) -> "tuple[float, str]":
                                                           "operations")
 
 
+def dup_write_tables():
+    """Tables where two ops of one cycle write one column: two NOTs that
+    read columns 0 and 1 and both write column 2 (column 3 scratch), and
+    random gates over 24 columns whose outputs fall in 8 columns (the
+    tables of tests/_tables.py). A cycle ANDs every write into its
+    column."""
+    from repro_torch.convert import packed_from_arrays
+    gate = np.full((1, 2), 1, np.int32)                 # NOT, NOT
+    ins = np.full((1, 2, 3), 3, np.int32)
+    ins[0, :, 0] = [0, 1]
+    two_nots = packed_from_arrays(gate, ins, np.array([[2, 2]], np.int32),
+                                  np.zeros((1, 4), bool))
+    rng = np.random.default_rng(11)
+    t, m, c = 30, 10, 24
+    gate = rng.integers(0, 7, (t, m)).astype(np.int32)
+    ins = rng.integers(0, c - 1, (t, m, 3)).astype(np.int32)
+    out = rng.integers(0, 8, (t, m)).astype(np.int32)
+    out[gate == 0] = c - 1
+    init = rng.random((t, c)) < 0.05
+    init[:, c - 1] = False
+    return {"two NOTs into one column": two_nots,
+            "random, outputs in 8 columns": packed_from_arrays(
+                gate, ins, out, init)}
+
+
+def held_table():
+    """A random table whose cycles read columns they write (K1's and K2's
+    held path), as tests/_tables.py builds it."""
+    from repro_torch.convert import packed_from_arrays
+    rng = np.random.default_rng(3)
+    t, m, c = 40, 12, 60
+    gate = rng.integers(0, 7, (t, m)).astype(np.int32)
+    ins = rng.integers(0, c - 1, (t, m, 3)).astype(np.int32)
+    out = np.stack([rng.permutation(c - 1)[:m] for _ in range(t)]
+                   ).astype(np.int32)
+    out[gate == 0] = c - 1
+    init = rng.random((t, c)) < 0.05
+    init[:, c - 1] = False
+    return packed_from_arrays(gate, ins, out, init)
+
+
+def span_seconds(tracer) -> dict:
+    """Seconds per span name in the tracer's complete events."""
+    out = {}
+    for e in tracer.trace_dict()["traceEvents"]:
+        if e.get("ph") == "X":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return out
+
+
 def main() -> None:
     """Run every phase on card 0; raise on the first failure."""
     if not torch.cuda.is_available():
@@ -547,6 +602,20 @@ def main() -> None:
           cols=c, exact=True, ms=ms,
           smem_floor_ms=smem_floor_ms(fused, COSCHED_ROWS, sm_clock_hz))
     del st, got, want
+    # Two ops of one cycle write one column: K1's held path against the
+    # plain version, which ANDs every write (comparison launches).
+    dups = dup_write_tables()
+    for name, packed in dups.items():
+        st = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (1000, packed.init_mask.shape[1]),
+            dtype=np.int64).astype(np.int32)).to(dev)
+        got = crossbar_run_packed(st, packed)
+        want = crossbar_run_ref_packed(st, packed)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, max_abs_err(got, want))
+        check(torch.equal(got, want), f"K1 disagrees with its plain version "
+                                      f"on the table '{name}'")
+        phase("K1", program=name, words=1000, exact=True, held=True)
 
     # ------------------------------------------------- 4. K2 vs its twin ----
     mp = programs["multpim"]
@@ -564,6 +633,23 @@ def main() -> None:
     phase("K2", program="multpim", rows=ROWS, cols=c, exact=True,
           ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by)
     del sb, got, want
+    # The co-scheduled table (855 columns), a held table at a ragged row
+    # count and the duplicate-write tables (comparison launches).
+    for name, packed, rows in (
+            ("mac N=32 x2 co-scheduled", fused, COSCHED_ROWS),
+            ("held", held_table(), 100_003),
+            *[(n, p, 70_001) for n, p in dups.items()]):
+        sb = torch.from_numpy(rng.integers(
+            0, 2, (rows, packed.init_mask.shape[1]), dtype=np.uint8)).to(dev)
+        got = crossbar_run(sb, packed)
+        want = crossbar_run_ref(sb, packed)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, max_abs_err(got, want))
+        check(torch.equal(got, want), f"K2 disagrees with its plain version "
+                                      f"on the table '{name}'")
+        phase("K2", program=name, rows=rows, cols=packed.init_mask.shape[1],
+              exact=True, ms=time_ms(lambda: crossbar_run(sb, packed), 2, 5))
+        del sb, got, want
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 5. front door ----
@@ -571,6 +657,7 @@ def main() -> None:
     a = rng.integers(0, 1 << N_BITS, ROWS, dtype=np.uint64)
     b = rng.integers(0, 1 << N_BITS, ROWS, dtype=np.uint64)
     exact = a * b                       # < 2^64: exact in uint64
+    tracer = obs.get_tracer()
     for pack, kern in ((True, "K1"), (False, "K2")):
         eng = Engine(f"torch:pack={str(pack).lower()}")
         exe = eng.compile("multpim", N_BITS)
@@ -587,8 +674,30 @@ def main() -> None:
         main_launches[kern] += counts[kern]
         check(np.array_equal(out.astype(np.uint64), exact),
               f"front door pack={pack} products disagree with numpy")
+        # The split, from a second run with tracing on (the wall above
+        # is untraced). With pack=false the backend.kernel span holds
+        # both copies and K2; with pack=true it holds only K1's enqueue,
+        # and K1 runs inside backend.unpack's copy, so no rest is given.
+        tracer.reset()
+        tracer.enable()
+        t0 = time.perf_counter()
+        out = exe.run({"a": a, "b": b})["out"]
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+        tracer.disable()
+        spans = span_seconds(tracer)
+        tracer.reset()
+        check(np.array_equal(out.astype(np.uint64), exact),
+              f"traced front door pack={pack} products disagree with numpy")
+        split = {"traced_wall_s": round(traced, 4),
+                 "span_s": json.dumps({k: round(v, 4)
+                                       for k, v in sorted(spans.items())})}
+        if not pack:
+            kernel_s = spans.get("backend.kernel", 0.0)
+            split.update(kernel_span_s=round(kernel_s, 4),
+                         rest_s=round(traced - kernel_s, 4))
         phase("front_door", op="multpim", n=N_BITS, rows=ROWS, pack=pack,
-              exact=True, launches=counts, wall_s=round(wall, 3))
+              exact=True, launches=counts, wall_s=round(wall, 3), **split)
     # the same engine on a small input against the host interpreter
     small = {"a": a[:70], "b": b[:70]}
     on_card = Engine("torch:pack=true").compile("multpim", N_BITS).run(small)
@@ -603,7 +712,6 @@ def main() -> None:
     want_mv = A.astype(np.uint64) @ x.astype(np.uint64)
     eng = Engine("torch:pack=true")
     eng.resident(N_BITS, rows=ROWS)          # compile outside the window
-    tracer = obs.get_tracer()
     tracer.reset()
     tracer.enable()
     crossbar_run_packed.launches = 0

@@ -13,23 +13,32 @@
 //   1. SET the cycle's init cells (OR with all-ones);
 //   2. gather the operands of its real ops from the pre-cycle state and
 //      evaluate the gates (NOT, NOR, MIN3 = not-majority, NAND, OR, COPY);
-//   3. AND-write each op's result into its output column, in turn.
+//   3. AND-write each op's result into its output column, in turn (two
+//      ops of one cycle that write one column leave the AND of both).
 // NOP slots do nothing: their all-ones result AND-written into the
 // scratch column changes nothing.
 //
 // What bounds them on the H100
-//   Every crossbar word (32 rows, k1) or row (k2) is independent of every
-//   other: gathers and writes move along columns inside one word. Device
-//   memory sees the state once in and once out (2 x 60 MB for multpim
-//   N=32 at 2^20 rows: 0.036 ms at 3.35 TB/s, the bytes bound). A design
-//   that keeps the state in shared memory has a second floor: each real
-//   op is 3 operand gathers and one AND-write (a load and a store), about
-//   5 warp-wide shared accesses per 32 words. For multpim N=32 (10,271
-//   real ops) at 2^20 rows that is 52.6 M wavefronts, 0.20 ms over 132
-//   SMs at one a clock (1,980 MHz).
+//   Every crossbar word (32 rows) is independent of every other: gathers
+//   and writes move along columns inside one word. Device memory sees the
+//   state once in and once out: for multpim N=32 at 2^20 rows 2 x 60 MB
+//   packed (k1, 0.036 ms at 3.35 TB/s) or 2 x 482 MB as bytes (k2, 0.288
+//   ms), the bytes bound. A design that keeps the state in shared memory
+//   has a second floor: each real op is 3 operand gathers and one
+//   AND-write (a load and a store), about 5 warp-wide shared accesses per
+//   32 words. For multpim N=32 (10,271 real ops) at 2^20 rows that is
+//   52.6 M wavefronts, 0.20 ms over 132 SMs at one a clock (1,980 MHz).
+//   k2 adds its transposes: about C / 4 shared reads and C ballots per
+//   word in, C broadcast reads and C / 4 shared stores per word out.
 //
-// What k1's design does about that (k2 keeps its first design: one
-// thread per row, (T, M) tables read as uniform loads, NOP slots skipped)
+// One engine serves both kernels: crossbar_kernel<S, IO> runs the
+// command stream over a tile of bit-plane words; IO loads the tile from
+// the state and stores it back. k1's IO (Words) copies int32 words; k2's
+// (Bytes) packs 32 rows of bytes into each word in the kernel and unpacks
+// them on the way out, so k2 is k1's computation with another load and
+// store, and one byte a cell costs it nothing inside the cycle loop.
+//
+// The engine's design
 //   * One block per 32 words, one lane per word, the words in a
 //     [C + 2][B + 1] shared tile (column-major, padded, so an access of
 //     all lanes to one column and the tile load and store are free of
@@ -66,143 +75,26 @@
 //     table where that fails runs "held", on one warp: the step's results
 //     go to a per-thread staging area in shared memory and are
 //     AND-written, in turn, after all its gathers.
+//   * k2's load and store (Bytes): a block's 32 B rows are one
+//     contiguous stretch of bytes. A word's 32 x C bytes come into a
+//     staging buffer by 16-byte cp.async; lane l reads row l four
+//     columns at a time, and 32 ballots make 32 column words, lane i
+//     keeping column c0 + i: 32 rows of a column cost one ballot, not
+//     32 byte loads. Out, lane l takes bit l of each column word into
+//     row l's bytes in the buffer, and all threads copy the word out in
+//     16-byte stores. The buffer overlays the ring, which is filled
+//     after the load and dead after the last step, so k2 needs k1's
+//     shared memory plus 32 C + 48 - 2,048 bytes (75,760 B at C = 460):
+//     3 blocks an SM, as k1. Measured against it (PERF.md): two buffers
+//     (2 blocks an SM), 16-row chunks in two buffers, and lanes reading
+//     or writing device memory directly were all slower or no faster.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-enum : int { G_NOP = 0, G_NOT = 1, G_NOR = 2, G_MIN3 = 3, G_NAND = 4,
-             G_OR = 5, G_COPY = 6 };
-
-__device__ __forceinline__ uint32_t gate_eval(int g, uint32_t x0,
-                                              uint32_t x1, uint32_t x2) {
-  switch (g) {
-    case G_NOT:  return ~x0;
-    case G_NOR:  return ~(x0 | x1);
-    case G_MIN3: return ~((x0 & x1) | (x0 & x2) | (x1 & x2));
-    case G_NAND: return ~(x0 & x1);
-    case G_OR:   return x0 | x1;
-    case G_COPY: return x0;
-    default:     return 0xFFFFFFFFu;
-  }
-}
-
-// k2's kernel. T is the cell type: uint8_t, one row, values 0/1; the
-// bitwise gate evaluation keeps only bit 0 of the result.
-template <typename T, int MAXM>
-__global__ void __launch_bounds__(256)
-crossbar_kernel(const T* __restrict__ st_in, T* __restrict__ st_out,
-                int n_items, int n_cols,
-                const int* __restrict__ gate, const int* __restrict__ in0,
-                const int* __restrict__ in1, const int* __restrict__ in2,
-                const int* __restrict__ outc,
-                const int* __restrict__ init_ptr,
-                const int* __restrict__ init_cols,
-                int n_slots, int m_ops) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int B = blockDim.x;
-  const int ld = B + 1;
-  const int tid = threadIdx.x;
-  const long long first = (long long)blockIdx.x * B;
-  const int here = (int)min((long long)B, (long long)n_items - first);
-
-  // Coalesced tile load: the block's `here` items are contiguous rows of
-  // the (items, C) state. Slots past `here` hold zeros.
-  const T* src = st_in + first * n_cols;
-  for (int i = tid; i < B * n_cols; i += B) {
-    const int w = i / n_cols;
-    const int c = i - w * n_cols;
-    sm[c * ld + w] = (w < here) ? src[i] : T(0);
-  }
-  __syncthreads();
-
-  const T ones = (sizeof(T) == 4) ? T(0xFFFFFFFFu) : T(1);
-  T* mine = sm + tid;
-  for (int s = 0; s < n_slots; ++s) {
-    const int ib = __ldg(init_ptr + s);
-    const int ie = __ldg(init_ptr + s + 1);
-    for (int k = ib; k < ie; ++k) mine[__ldg(init_cols + k) * ld] = ones;
-
-    const int* g_s = gate + (long long)s * m_ops;
-    const int* a_s = in0 + (long long)s * m_ops;
-    const int* b_s = in1 + (long long)s * m_ops;
-    const int* c_s = in2 + (long long)s * m_ops;
-    const int* o_s = outc + (long long)s * m_ops;
-    uint32_t res[MAXM];
-#pragma unroll
-    for (int m = 0; m < MAXM; ++m) {
-      res[m] = 0xFFFFFFFFu;
-      if (m < m_ops) {
-        const int g = __ldg(g_s + m);
-        if (g != G_NOP) {
-          const uint32_t x0 = mine[__ldg(a_s + m) * ld];
-          const uint32_t x1 = mine[__ldg(b_s + m) * ld];
-          const uint32_t x2 = mine[__ldg(c_s + m) * ld];
-          res[m] = gate_eval(g, x0, x1, x2);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MAXM; ++m) {
-      if (m < m_ops && __ldg(g_s + m) != G_NOP) {
-        T* cell = mine + __ldg(o_s + m) * ld;
-        *cell = T(*cell & T(res[m] & uint32_t(ones)));
-      }
-    }
-  }
-  __syncthreads();
-
-  T* dst = st_out + first * n_cols;
-  for (int i = tid; i < here * n_cols; i += B) {
-    const int w = i / n_cols;
-    const int c = i - w * n_cols;
-    dst[i] = sm[c * ld + w];
-  }
-}
-
-template <typename T, int MAXM>
-int launch_one(const void* st_in, void* st_out, int n_items, int n_cols,
-               const void* gate, const void* in0, const void* in1,
-               const void* in2, const void* outc, const void* init_ptr,
-               const void* init_cols, int n_slots, int m_ops, int block,
-               void* stream) {
-  const size_t smem = (size_t)n_cols * (block + 1) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      crossbar_kernel<T, MAXM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n_items + block - 1) / block;
-  if (grid > 0) {
-    crossbar_kernel<T, MAXM><<<grid, block, smem, (cudaStream_t)stream>>>(
-        (const T*)st_in, (T*)st_out, n_items, n_cols, (const int*)gate,
-        (const int*)in0, (const int*)in1, (const int*)in2,
-        (const int*)outc, (const int*)init_ptr, (const int*)init_cols,
-        n_slots, m_ops);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* st_in, void* st_out, int n_items, int n_cols,
-           const void* gate, const void* in0, const void* in1,
-           const void* in2, const void* outc, const void* init_ptr,
-           const void* init_cols, int n_slots, int m_ops, int block,
-           void* stream) {
-#define CROSSBAR_LAUNCH(MAXM)                                              \
-  return launch_one<T, MAXM>(st_in, st_out, n_items, n_cols, gate, in0,   \
-                             in1, in2, outc, init_ptr, init_cols, n_slots, \
-                             m_ops, block, stream)
-  if (m_ops <= 4) CROSSBAR_LAUNCH(4);
-  if (m_ops <= 32) CROSSBAR_LAUNCH(32);
-  if (m_ops <= 64) CROSSBAR_LAUNCH(64);
-  if (m_ops <= 128) CROSSBAR_LAUNCH(128);
-#undef CROSSBAR_LAUNCH
-  return (int)cudaErrorInvalidValue;
-}
-
-
-// ------------------------------------------------------------------ k1 ----
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int G = 16;  // ops whose gathers are in flight together
 constexpr int LU = 8;  // tile stores in flight per thread
@@ -222,6 +114,13 @@ __device__ __forceinline__ void cp8(uint2* dst, const uint2* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
@@ -282,18 +181,201 @@ __device__ __forceinline__ int own_first(int lo, int k) {
   return lo + ((k - lo) & (S - 1));
 }
 
-// S warps share one tile of up to 32 words (lane = word). The command
-// stream comes through a shared ring of 4 quarters, refilled a quarter at
-// a time with cp.async by all threads at step boundaries, at least two
-// quarters ahead of the reader. Each step's SET entries and ops are
-// split between the warps, warp k taking those = k (mod S); a barrier
-// separates a step's SETs from its ops and closes each step.
+// How the engine sees its block's tile: column c of word w at
+// sm[c * ld + w], words past `here` zeros; `rows` rows of the state (k2);
+// `stage` k2's staging buffer (over the ring).
+struct Block {
+  uint32_t* sm;
+  int ld;
+  int B;                // words per block
+  int here;             // words of this block in the state
+  int rows;             // rows of this block in the state (k2)
+  int n_cols;
+  long long first;      // the block's first word
+  unsigned char* stage;
+};
+
+// k1's tile IO: (n_words, C) int32 words, one word per cell.
+struct Words {
+  __host__ __device__ static int words(int n_words) { return n_words; }
+  static size_t stage_bytes(int) { return 0; }
+
+  // Word w is a contiguous row of the state; the threads copy 32 S
+  // consecutive cells of it at a time (coalesced) with cp.async, each
+  // down its tile row (banks c + w, all distinct), so the whole tile is
+  // in flight at once. Words past `here` are zero-filled. Completed by
+  // the engine's cp.async.wait_all.
+  template <int S>
+  static __device__ void load(const Block& b, const void* st_in) {
+    const uint32_t* src =
+        static_cast<const uint32_t*>(st_in) + b.first * b.n_cols;
+    for (int w = 0; w < b.B; ++w)
+      for (int c = threadIdx.x; c < b.n_cols; c += 32 * S)
+        cp4(b.sm + c * b.ld + w,
+            w < b.here ? src + (long long)w * b.n_cols + c : src,
+            w < b.here);
+  }
+
+  // Coalesced stores, LU in flight per thread.
+  template <int S>
+  static __device__ void store(const Block& b, void* st_out) {
+    uint32_t* dst = static_cast<uint32_t*>(st_out) + b.first * b.n_cols;
+    const int avail = b.here * b.n_cols;
+    for (int i0 = 0; i0 < avail; i0 += 32 * S * LU) {
+      uint32_t v[LU];
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        const int k = i0 + 32 * S * u + threadIdx.x;
+        const int w = k / b.n_cols;
+        v[u] = k < avail ? b.sm[(k - w * b.n_cols) * b.ld + w] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        const int k = i0 + 32 * S * u + threadIdx.x;
+        if (k < avail) dst[k] = v[u];
+      }
+    }
+  }
+};
+
+// Word w of a k2 block: the rows 32 w .. 32 w + 31 of the block, bytes
+// [32 w C, 32 w C + rows C) of its stretch of the state, row-major, in
+// the staging buffer. Pack it into the tile: lane l reads row l (four
+// columns a 32-bit load, funnel-shifted, so any C works), and 32 ballots
+// over a column group give its 32 column words; lane i keeps column
+// c0 + i and stores it down its tile row (banks c0 + i + w, all
+// distinct). Rows past `rows` read as zeros; reads past a row's last
+// column stay inside the buffer's padding and feed only columns >= C,
+// which are not stored. Warp k takes the column groups = k mod S.
 template <int S>
+__device__ __forceinline__ void pack_word(const Block& b, int w, int rows) {
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(b.stage);
+  const int lane = threadIdx.x & 31;
+  const int row0 = lane * b.n_cols;          // this lane's row, in bytes
+  const int sh = 8 * (row0 & 3);
+  const bool ok = lane < rows;
+  for (int c0 = 32 * (threadIdx.x >> 5); c0 < b.n_cols; c0 += 32 * S) {
+    const int q = (row0 + c0) >> 2;
+    uint32_t lo = ok ? p[q] : 0u;
+    uint32_t keep = 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t hi = ok ? p[q + k + 1] : 0u;
+      const uint32_t v = __funnelshift_r(lo, hi, sh);
+      lo = hi;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t m = __ballot_sync(FULL, (v >> (8 * j)) & 1u);
+        if (lane == 4 * k + j) keep = m;
+      }
+    }
+    if (c0 + lane < b.n_cols) b.sm[(c0 + lane) * b.ld + w] = keep;
+  }
+}
+
+// Unpack word w of the tile into the staging buffer (row-major): lane l
+// writes row l, four columns at a time from bit l of their column words
+// (broadcast reads), as one 32-bit store where C is a multiple of 4,
+// else byte by byte. Rows past `rows` are not written. Warp k takes the
+// 4-column groups = k mod S.
+template <int S>
+__device__ __forceinline__ void unpack_word(const Block& b, int w, int rows) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= rows) return;
+  unsigned char* row = b.stage + lane * b.n_cols;
+  const bool whole = (b.n_cols & 3) == 0;
+  for (int c0 = 4 * (threadIdx.x >> 5); c0 < b.n_cols; c0 += 4 * S) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < b.n_cols)
+        v |= ((b.sm[(c0 + j) * b.ld + w] >> lane) & 1u) << (8 * j);
+    if (whole) {
+      *reinterpret_cast<uint32_t*>(row + c0) = v;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j < b.n_cols) row[c0 + j] = (unsigned char)(v >> (8 * j));
+    }
+  }
+}
+
+// k2's tile IO: (n_rows, C) bytes holding 0/1, 32 rows packed into each
+// tile word in the kernel (bit l of word w = row 32 w + l of the block,
+// the order of core/bits.pack_rows), a word at a time through one
+// staging buffer that overlays the ring: in, the word's bytes come by
+// 16-byte cp.async and are packed from the buffer; out, the word is
+// unpacked into the buffer and copied out in 16-byte stores. The state
+// must be 16-byte aligned (the wrapper's rule).
+struct Bytes {
+  __host__ __device__ static int words(int n_rows) {
+    return (n_rows + 31) / 32;
+  }
+  // One word's bytes, padded for pack_word's reads past the last row
+  // (up to byte 32 C + 34).
+  static size_t stage_bytes(int n_cols) { return 32 * (size_t)n_cols + 48; }
+
+  template <int S>
+  static __device__ void load(const Block& b, const void* st_in) {
+    const unsigned char* src = static_cast<const unsigned char*>(st_in) +
+                               b.first * 32 * b.n_cols;
+    const int wb = 32 * b.n_cols;               // bytes a word, 16 | wb
+    for (int w = 0; w < b.here; ++w) {
+      const int rows = min(32, b.rows - 32 * w);
+      const unsigned char* from = src + (long long)w * wb;
+      const int n = rows * b.n_cols;
+      for (int i = threadIdx.x; i < n / 16; i += 32 * S)
+        cp16(b.stage + 16 * i, from + 16 * i);
+      for (int i = n / 16 * 16 + threadIdx.x; i < n; i += 32 * S)
+        b.stage[i] = from[i];                   // a ragged word's tail
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      pack_word<S>(b, w, rows);
+      __syncthreads();                          // the buffer is free again
+    }
+    for (int i = threadIdx.x; i < (b.B - b.here) * b.n_cols; i += 32 * S) {
+      const int w = b.here + i / b.n_cols;
+      b.sm[(i % b.n_cols) * b.ld + w] = 0u;     // words past the state
+    }
+  }
+
+  template <int S>
+  static __device__ void store(const Block& b, void* st_out) {
+    unsigned char* dst = static_cast<unsigned char*>(st_out) +
+                         b.first * 32 * b.n_cols;
+    const int wb = 32 * b.n_cols;
+    for (int w = 0; w < b.here; ++w) {
+      const int rows = min(32, b.rows - 32 * w);
+      unsigned char* to = dst + (long long)w * wb;
+      unpack_word<S>(b, w, rows);
+      __syncthreads();
+      const int n = rows * b.n_cols;
+      for (int i = threadIdx.x; i < n / 16; i += 32 * S)
+        reinterpret_cast<uint4*>(to)[i] =
+            reinterpret_cast<const uint4*>(b.stage)[i];
+      for (int i = n / 16 * 16 + threadIdx.x; i < n; i += 32 * S)
+        to[i] = b.stage[i];
+      __syncthreads();                          // the buffer is free again
+    }
+  }
+};
+
+// The engine. S warps share one tile of up to 32 words (lane = word),
+// loaded and stored by IO. The command stream comes through a shared
+// ring of 4 quarters, refilled a quarter at a time with cp.async by all
+// threads at step boundaries, at least two quarters ahead of the reader.
+// Each step's SET entries and ops are split between the warps, warp k
+// taking those = k (mod S); a barrier separates a step's SETs from its
+// ops and closes each step. Shared memory: the tile, then from the next
+// 16-byte boundary the ring and the held staging area, which IO's
+// staging buffers overlay: IO loads the tile before the ring is filled
+// and stores it after the last step.
+template <int S, class IO>
 __global__ void __launch_bounds__(32 * S)
-k1_kernel(const uint32_t* __restrict__ st_in, uint32_t* __restrict__ st_out,
-          int n_words, int n_cols, int words_per_block,
-          const uint2* __restrict__ cmd, int n_cmd, int n_steps,
-          int quarter, int held) {
+crossbar_kernel(const void* __restrict__ st_in, void* __restrict__ st_out,
+                int n_items, int n_cols, int words_per_block,
+                const uint2* __restrict__ cmd, int n_cmd, int n_steps,
+                int quarter, int held) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int B = words_per_block;
   const int ld = B + 1;
@@ -302,23 +384,19 @@ k1_kernel(const uint32_t* __restrict__ st_in, uint32_t* __restrict__ st_out,
   const int warp = tid >> 5;
   const bool active = lane < B;
   const long long first = (long long)blockIdx.x * B;
-  const int here = (int)min((long long)B, (long long)n_words - first);
+  const int here =
+      (int)min((long long)B, (long long)IO::words(n_items) - first);
   const int tile_words = (n_cols + 2) * ld;
-  uint2* ring = reinterpret_cast<uint2*>(sm + tile_words + (tile_words & 1));
+  uint2* ring = reinterpret_cast<uint2*>(sm + ((tile_words + 3) & ~3));
   const int ring_size = 4 * quarter;
   uint32_t* staging = reinterpret_cast<uint32_t*>(ring + ring_size) + lane;
+  const Block blk{sm, ld, B, here,
+                  (int)min((long long)32 * B, (long long)n_items - 32 * first),
+                  n_cols, first, reinterpret_cast<unsigned char*>(ring)};
 
-  // Tile load: word w is a contiguous row of the (words, C) state; the
-  // threads copy 32 S consecutive cells of it at a time (coalesced) with
-  // cp.async, each down its tile row (banks c + w, all distinct), so the
-  // whole tile is in flight at once. Words past `here` are zeros. The
-  // first four quarters of the stream go with it, so that every ring
-  // slot holds an entry.
-  const uint32_t* src = st_in + first * n_cols;
-  for (int w = 0; w < B; ++w)
-    for (int c = tid; c < n_cols; c += 32 * S)
-      cp4(sm + c * ld + w, w < here ? src + (long long)w * n_cols + c : src,
-          w < here);
+  // The tile, then the first four quarters of the stream, so that every
+  // ring slot holds an entry.
+  IO::template load<S>(blk, st_in);
   int filled = 4 * quarter;    // entries issued to the ring
   for (int e = tid; e < filled; e += 32 * S)
     cp8(ring + e, cmd + min(e, n_cmd - 1), e < n_cmd);
@@ -412,45 +490,69 @@ k1_kernel(const uint32_t* __restrict__ st_in, uint32_t* __restrict__ st_out,
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-
-  uint32_t* dst = st_out + first * n_cols;
-  const int avail = here * n_cols;
-  for (int i0 = 0; i0 < avail; i0 += 32 * S * LU) {
-    uint32_t v[LU];
-#pragma unroll
-    for (int u = 0; u < LU; ++u) {
-      const int k = i0 + 32 * S * u + tid;
-      const int w = k / n_cols;
-      v[u] = k < avail ? sm[(k - w * n_cols) * ld + w] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < LU; ++u) {
-      const int k = i0 + 32 * S * u + tid;
-      if (k < avail) dst[k] = v[u];
-    }
-  }
+  IO::template store<S>(blk, st_out);
 }
 
-template <int S>
-int launch_k1(const void* st_in, void* st_out, int n_words, int n_cols,
-              const void* cmd, int n_cmd, int n_steps, int quarter,
-              int held, size_t smem, int words_per_block, void* stream) {
+template <int S, class IO>
+int launch_one(const void* st_in, void* st_out, int n_items, int n_cols,
+               const void* cmd, int n_cmd, int n_steps, int quarter,
+               int held, size_t smem, int words_per_block, void* stream) {
+  auto kernel = crossbar_kernel<S, IO>;
   cudaError_t err = cudaFuncSetAttribute(
-      k1_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // All of the SM's unified memory as shared memory, so that as many
   // blocks fit as the tile allows (the default carveout may hold one).
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k1_kernel<S>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
+  const int n_words = IO::words(n_items);
   const int grid = (n_words + words_per_block - 1) / words_per_block;
   if (grid > 0) {
-    k1_kernel<S><<<grid, 32 * S, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)st_in, (uint32_t*)st_out, n_words, n_cols,
-        words_per_block, (const uint2*)cmd, n_cmd, n_steps, quarter, held);
+    kernel<<<grid, 32 * S, smem, (cudaStream_t)stream>>>(
+        st_in, st_out, n_items, n_cols, words_per_block, (const uint2*)cmd,
+        n_cmd, n_steps, quarter, held);
   }
   return (int)cudaGetLastError();
+}
+
+// Both entries: the command stream cmd (n_cmd,) of 64-bit entries,
+// n_steps steps of at most max_step entries each (n_cmd >= 1). held != 0
+// when some cycle reads a column it writes or writes one twice; max_ops
+// bounds a step's ops (sizes the held staging area). Four warps share a
+// block, or one when held. words_per_block (at most 32) is halved until
+// the block's shared memory fits; cudaErrorInvalidValue if even one word
+// does not.
+template <class IO>
+int launch(const void* st_in, void* st_out, int n_items, int n_cols,
+           const void* cmd, int n_cmd, int n_steps, int max_step, int held,
+           int max_ops, int words_per_block, void* stream) {
+  if (n_cols < 1 || n_cols + 2 > 4096 || words_per_block < 1 ||
+      words_per_block > 32 || n_cmd < 1 || n_steps < 0 || max_step < 0 ||
+      max_ops < 0 || n_items < 0)
+    return (int)cudaErrorInvalidValue;
+  int quarter = 64;            // a power of two > max_step
+  while (quarter <= max_step) quarter *= 2;
+  const size_t staged = held ? ((max_ops + G - 1) / G) * G * 32 : 0;
+  // The tile, then (16-byte aligned) the ring and the held staging
+  // area, or IO's staging buffers where they are larger.
+  auto smem_bytes = [&](int b) {
+    const size_t tile_words = ((size_t)(n_cols + 2) * (b + 1) + 3) / 4 * 4;
+    return tile_words * 4 + std::max((2 * 4 * (size_t)quarter + staged) * 4,
+                                     IO::stage_bytes(n_cols));
+  };
+  while (words_per_block > 1 && smem_bytes(words_per_block) > kMaxSmem)
+    words_per_block /= 2;
+  const size_t smem = smem_bytes(words_per_block);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (held)
+    return launch_one<1, IO>(st_in, st_out, n_items, n_cols, cmd, n_cmd,
+                             n_steps, quarter, held, smem, words_per_block,
+                             stream);
+  return launch_one<4, IO>(st_in, st_out, n_items, n_cols, cmd, n_cmd,
+                           n_steps, quarter, held, smem, words_per_block,
+                           stream);
 }
 
 }  // namespace
@@ -458,48 +560,21 @@ int launch_k1(const void* st_in, void* st_out, int n_words, int n_cols,
 extern "C" {
 
 // K1: packed state, (n_words, n_cols) 32-bit words, 32 rows per word.
-// cmd (n_cmd,) 64-bit entries of the command stream, n_steps steps of at
-// most max_step entries each (n_cmd >= 1). held != 0 when some cycle
-// reads a column it writes or writes one twice; max_ops bounds a step's
-// ops (sizes the held staging area). Four warps share a block, or one
-// when held. words_per_block (at most 32) is halved until the block's
-// shared memory fits; cudaErrorInvalidValue if even one word does not.
 int k1_packed(const void* st_in, void* st_out, int n_words, int n_cols,
               const void* cmd, int n_cmd, int n_steps, int max_step,
               int held, int max_ops, int words_per_block, void* stream) {
-  if (n_cols < 1 || n_cols + 2 > 4096 || words_per_block < 1 ||
-      words_per_block > 32 || n_cmd < 1 || n_steps < 0 || max_step < 0 ||
-      max_ops < 0)
-    return (int)cudaErrorInvalidValue;
-  int quarter = 64;            // a power of two > max_step
-  while (quarter <= max_step) quarter *= 2;
-  const int staged = held ? ((max_ops + G - 1) / G) * G * 32 : 0;
-  auto smem_bytes = [&](int b) {
-    const size_t tile_words = (size_t)(n_cols + 2) * (b + 1);
-    return (tile_words + (tile_words & 1) + 2 * 4 * (size_t)quarter +
-            staged) * 4;
-  };
-  while (words_per_block > 1 && smem_bytes(words_per_block) > kMaxSmem)
-    words_per_block /= 2;
-  const size_t smem = smem_bytes(words_per_block);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (held)
-    return launch_k1<1>(st_in, st_out, n_words, n_cols, cmd, n_cmd, n_steps,
-                        quarter, held, smem, words_per_block, stream);
-  return launch_k1<4>(st_in, st_out, n_words, n_cols, cmd, n_cmd, n_steps,
-                      quarter, held, smem, words_per_block, stream);
+  return launch<Words>(st_in, st_out, n_words, n_cols, cmd, n_cmd, n_steps,
+                       max_step, held, max_ops, words_per_block, stream);
 }
 
-// K2: unpacked state, (n_rows, n_cols) bytes holding 0/1; (n_slots,
-// m_ops) int32 slot tables and the init cells as CSR.
+// K2: unpacked state, (n_rows, n_cols) bytes holding 0/1, 16-byte
+// aligned; the same command stream and rules as K1, words_per_block in
+// 32-row words.
 int k2_unpacked(const void* st_in, void* st_out, int n_rows, int n_cols,
-                const void* gate, const void* in0, const void* in1,
-                const void* in2, const void* outc, const void* init_ptr,
-                const void* init_cols, int n_slots, int m_ops, int block,
-                void* stream) {
-  return launch<uint8_t>(st_in, st_out, n_rows, n_cols, gate, in0, in1,
-                         in2, outc, init_ptr, init_cols, n_slots, m_ops,
-                         block, stream);
+                const void* cmd, int n_cmd, int n_steps, int max_step,
+                int held, int max_ops, int words_per_block, void* stream) {
+  return launch<Bytes>(st_in, st_out, n_rows, n_cols, cmd, n_cmd, n_steps,
+                       max_step, held, max_ops, words_per_block, stream);
 }
 
 }  // extern "C"

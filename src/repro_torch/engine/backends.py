@@ -316,8 +316,10 @@ class TorchBackend:
     and runs K1; ``pack=False`` runs K2 on one uint8 cell per row and
     column. ``macro`` is the macro-cycle fusion depth of the packed
     tables (``None`` = ``DEFAULT_MACRO``; results never depend on it).
-    ``row_block`` is the crossbar rows per CUDA block (``None`` = the
-    kernels' defaults: 1024 rows = 32 words packed, 128 rows unpacked).
+    ``row_block`` is the crossbar rows per CUDA block of both kernels
+    (``None`` = their default, 1,024 rows), rounded up to 32-row words
+    (:attr:`word_block`, at most 32); each kernel halves its words per
+    block until its shared memory fits.
     ``faults`` must be off until fault injection is ported.
     """
 
@@ -341,9 +343,10 @@ class TorchBackend:
 
     @property
     def word_block(self) -> Optional[int]:
-        """Words per CUDA block of the packed kernel (``None`` = its
-        default)."""
-        return None if self.row_block is None else max(1, self.row_block // 32)
+        """32-row words per CUDA block of both kernels: ``row_block``
+        rounded up to words (``None`` = the kernels' default)."""
+        return None if self.row_block is None else max(
+            1, -(-self.row_block // 32))
 
     def run_state(self, packed: PackedProgram, state: np.ndarray) -> np.ndarray:
         """Run the program over ``state`` (rows, C) {0,1} on the device."""
@@ -362,7 +365,7 @@ class TorchBackend:
         with obs.span("backend.kernel", backend=self.name, rows=rows,
                       cycles=packed.n_cycles):
             st = torch.from_numpy(np.ascontiguousarray(state)).to(self.device)
-            final = crossbar_run(st, packed, row_block=self.row_block)
+            final = crossbar_run(st, packed, word_block=self.word_block)
             return final.cpu().numpy()
 
     def resident_chain(self, mac: PackedProgram, stage: PackedProgram,

@@ -33,12 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # The C entry points, each returning cudaGetLastError() as an int.
 _ENTRY_POINTS = {
-    # crossbar_step.cu: (st_in, st_out, n_words, n_cols, cmd, n_cmd,
-    # n_steps, max_step, held, max_ops, block, stream)
+    # crossbar_step.cu: (st_in, st_out, n_words or n_rows, n_cols, cmd,
+    # n_cmd, n_steps, max_step, held, max_ops, words per block, stream)
     "k1_packed": [_P, _P, _I, _I, _P] + [_I] * 6 + [_P],
-    # (st_in, st_out, n_rows, n_cols, gate, in0, in1, in2, outc,
-    # init_ptr, init_cols, n_slots, m_ops, block, stream)
-    "k2_unpacked": [_P, _P, _I, _I] + [_P] * 7 + [_I, _I, _I, _P],
+    "k2_unpacked": [_P, _P, _I, _I, _P] + [_I] * 6 + [_P],
     # bitserial_matmul.cu: (x, w, out, M, K, N, n_bits, stream)
     "k3_bitserial_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -14,11 +14,13 @@ The kernels read their tables from the device. They are built once per
 ``(program, device)`` and memoized on the
 :class:`~repro_torch.core.executor.PackedProgram`, as the reference
 package memoizes its Pallas tables: repeated passes upload nothing.
-K1 reads a compact command stream (:func:`command_stream`, built from
-:func:`encode_records`' one 64-bit record per real op, NOP slots
-dropped, and the init cells); K2 reads the unfused ``(T, M)`` slot
-tables and skips NOP slots. Neither uses macro-cycle fusion, which
-would only add padding; ``macro`` matters only to the CPU twin.
+Both kernels read one compact command stream (:func:`command_stream`,
+built from :func:`encode_records`' one 64-bit record per real op, NOP
+slots dropped, and the init cells) and run one engine over a tile of
+bit-plane words: K1 loads the tile from packed words, K2 packs 32 rows
+of bytes into each word inside the kernel and unpacks them on the way
+out. Neither uses macro-cycle fusion, which would only add padding;
+``macro`` matters only to the CPU twin.
 """
 from __future__ import annotations
 
@@ -36,22 +38,17 @@ from .ref import crossbar_run_ref, crossbar_run_ref_packed
 
 __all__ = ["crossbar_run_packed", "crossbar_run", "kernel_tables",
            "KernelTables", "encode_records", "decode_records",
-           "command_stream", "block_size", "MAX_SMEM_BYTES",
-           "DEFAULT_WORD_BLOCK", "DEFAULT_ROW_BLOCK", "MAX_RECORD_COLS"]
+           "command_stream", "DEFAULT_WORD_BLOCK", "MAX_RECORD_COLS"]
 
-# Dynamic shared memory one block may use on the H100 (227 KB).
-MAX_SMEM_BYTES = 232448
-# Words per block for K1 (one lane per word, four warps sharing them) and
-# rows per block for K2 (one thread per row). K1 needs (C + 2) * 4 bytes
-# of shared memory per word, so at C = 460 three 32-word blocks share an
-# SM; K2 needs C bytes per row.
+# 32-row words per block, for both kernels (one lane per word, four warps
+# sharing them); the kernels halve it until the block's shared memory
+# fits. The tile needs (C + 2) * 4 bytes per word, so at C = 460 three
+# 32-word K1 blocks share an SM.
 DEFAULT_WORD_BLOCK = 32
-DEFAULT_ROW_BLOCK = 128
-_MAX_THREADS = 256
 _MAX_WORDS = 32
-_MAX_OPS = 128
-# A record's column fields are 12 bits, and K1 adds two constant columns
-# (all zeros at C, all ones at C + 1): tables of C + 2 > 4096 raise.
+# A record's column fields are 12 bits, and the kernels add two constant
+# columns (all zeros at C, all ones at C + 1): tables of C + 2 > 4096
+# raise.
 MAX_RECORD_COLS = 4096 - 2
 
 # K1's record form of each gate: result = maj(a, b, c) ^ inv, with the
@@ -71,25 +68,16 @@ _RECORD_FORM = {          # gate id: (a, b, c, inv)
 class KernelTables:
     """Tables on one device, as the kernels read them.
 
-    K1: ``stream`` the int64 command stream the kernel reads (see
-    :func:`command_stream`), ``n_steps`` its steps and ``max_step`` the
-    most entries of one step; ``n_records`` the real ops in it (see
-    :func:`encode_records`), ``max_ops`` the most of them in one cycle;
-    ``held`` when some cycle reads a column that it writes or writes one
-    twice. K2:
-    ``gate``/``in0``/``in1``/``in2``/``out`` ``(T, M)`` int32. Both: the
-    init cells as CSR, ``init_ptr`` ``(T + 1,)`` and ``init_cols``
-    int32 (one 0 entry when there are none)."""
+    ``stream`` the int64 command stream both kernels read, on the
+    device (see :func:`command_stream`), ``n_steps`` its steps and
+    ``max_step`` the most entries of one step; ``n_records`` the real
+    ops in it (see :func:`encode_records`), ``max_ops`` the most of them
+    in one cycle; ``held`` when some cycle reads a column that it writes
+    or writes one twice; the init cells it was built from as host CSR,
+    ``init_ptr`` ``(T + 1,)`` and ``init_cols`` int32 numpy arrays."""
 
-    gate: torch.Tensor
-    in0: torch.Tensor
-    in1: torch.Tensor
-    in2: torch.Tensor
-    out: torch.Tensor
-    init_ptr: torch.Tensor
-    init_cols: torch.Tensor
-    n_slots: int
-    m_ops: int
+    init_ptr: np.ndarray
+    init_cols: np.ndarray
     n_cols: int
     n_records: int
     n_init: int
@@ -207,7 +195,8 @@ def command_stream(records: np.ndarray, op_ptr: np.ndarray,
 
 def kernel_tables(packed: PackedProgram, device) -> KernelTables:
     """The kernels' tables for ``packed`` on ``device``, memoized on the
-    packed program per device."""
+    packed program per device. Raises ``ValueError`` (from
+    :func:`encode_records`) for tables too wide for the records."""
     device = torch.device(device)
     cache = getattr(packed, "_torch_kernel_tables", None)
     if cache is None:
@@ -215,48 +204,23 @@ def kernel_tables(packed: PackedProgram, device) -> KernelTables:
         packed._torch_kernel_tables = cache
     tabs = cache.get(str(device))
     if tabs is None:
-        t, m = packed.gate_id.shape
+        t = packed.gate_id.shape[0]
         ptr = np.zeros(t + 1, np.int32)
         np.cumsum(packed.init_mask.sum(axis=1), out=ptr[1:])
         cols = np.nonzero(packed.init_mask)[1].astype(np.int32)
-        # Tables too wide for K1's records keep K2 usable; K1 raises.
         c = packed.init_mask.shape[1]
-        records, op_ptr, max_ops, held = (
-            encode_records(packed) if c <= MAX_RECORD_COLS
-            else (np.zeros(0, np.int64), np.zeros(t + 1, np.int32), 0,
-                  False))
+        records, op_ptr, max_ops, held = encode_records(packed)
         stream, n_steps, max_step = command_stream(records, op_ptr, ptr,
                                                    cols, c)
 
-        def up(a, dtype=np.int32):
-            return torch.as_tensor(np.ascontiguousarray(a, dtype),
-                                   device=device)
-
         tabs = KernelTables(
-            gate=up(packed.gate_id),
-            in0=up(packed.in_cols[:, :, 0]), in1=up(packed.in_cols[:, :, 1]),
-            in2=up(packed.in_cols[:, :, 2]),
-            out=up(packed.out_col),
-            init_ptr=up(ptr), init_cols=up(cols if cols.size else [0]),
-            n_slots=t, m_ops=m, n_cols=packed.init_mask.shape[1],
+            init_ptr=ptr, init_cols=cols, n_cols=c,
             n_records=int(records.size), n_init=int(cols.size),
-            max_ops=max_ops, held=held, stream=up(stream, np.int64),
+            max_ops=max_ops, held=held,
+            stream=torch.as_tensor(stream, device=device),
             n_steps=n_steps, max_step=max_step)
         cache[str(device)] = tabs
     return tabs
-
-
-def block_size(requested: Optional[int], n_cols: int, cell_bytes: int,
-               default: int) -> int:
-    """Threads (words or rows) per block: ``requested`` (or
-    ``default``), capped at 256 and halved until the ``[C][B+1]``
-    shared-memory tile fits in 227 KB."""
-    b = max(1, min(int(requested or default), _MAX_THREADS))
-    while b > 1 and n_cols * (b + 1) * cell_bytes > MAX_SMEM_BYTES:
-        b //= 2
-    if n_cols * (b + 1) * cell_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{n_cols} columns do not fit in shared memory")
-    return b
 
 
 def _check(state: torch.Tensor, dtype: torch.dtype, n_cols: int,
@@ -292,6 +256,19 @@ def _call(entry: str, state: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
+def _run(entry: str, state: torch.Tensor, packed: PackedProgram,
+         words: int) -> torch.Tensor:
+    """Launch ``entry`` (K1 or K2) over ``state`` with ``packed``'s
+    command stream and ``words`` 32-row words per block (at most 32; the
+    kernel halves it until the block's shared memory fits). Raises
+    ``ValueError`` before any launch for tables too wide for the
+    records."""
+    tabs = kernel_tables(packed, state.device)
+    return _call(entry, state, tabs.stream, tabs.stream.numel(),
+                 tabs.n_steps, tabs.max_step, int(tabs.held), tabs.max_ops,
+                 max(1, min(words, _MAX_WORDS)))
+
+
 def crossbar_run_packed(state_words: torch.Tensor, packed: PackedProgram,
                         *, macro: int = 1,
                         word_block: Optional[int] = None) -> torch.Tensor:
@@ -305,35 +282,28 @@ def crossbar_run_packed(state_words: torch.Tensor, packed: PackedProgram,
     _check(state_words, torch.int32, c, "crossbar_run_packed")
     if state_words.device.type == "cpu":
         return crossbar_run_ref_packed(state_words, packed, macro)
-    if c > MAX_RECORD_COLS:
-        encode_records(packed)                # raises: too wide for K1
-    tabs = kernel_tables(packed, state_words.device)
-    # The kernel halves the words per block until its shared memory fits.
-    block = max(1, min(int(word_block or DEFAULT_WORD_BLOCK), _MAX_WORDS))
-    out = _call("k1_packed", state_words, tabs.stream,
-                tabs.stream.numel(), tabs.n_steps, tabs.max_step,
-                int(tabs.held), tabs.max_ops, block)
+    out = _run("k1_packed", state_words, packed,
+               int(word_block or DEFAULT_WORD_BLOCK))
     crossbar_run_packed.launches += 1
     return out
 
 
 def crossbar_run(state_bits: torch.Tensor, packed: PackedProgram, *,
-                 row_block: Optional[int] = None) -> torch.Tensor:
+                 word_block: Optional[int] = None) -> torch.Tensor:
     """K2: run ``packed`` over ``(rows, C)`` uint8 {0,1} state at the
     table width ``C``; returns the final state as a new uint8 tensor.
-    ``row_block`` is the rows per CUDA block (default 128)."""
+    ``word_block`` is the 32-row words per CUDA block, as for
+    :func:`crossbar_run_packed`. The kernel copies the state in 16-byte
+    pieces: a state that does not start on a 16-byte boundary (a view at
+    an offset) is copied to one that does first."""
     c = packed.init_mask.shape[1]
     _check(state_bits, torch.uint8, c, "crossbar_run")
     if state_bits.device.type == "cpu":
         return crossbar_run_ref(state_bits, packed)
-    tabs = kernel_tables(packed, state_bits.device)
-    if tabs.m_ops > _MAX_OPS:
-        raise ValueError(f"{tabs.m_ops} ops per cycle exceed K2's "
-                         f"{_MAX_OPS}")
-    out = _call("k2_unpacked", state_bits, tabs.gate, tabs.in0, tabs.in1,
-                tabs.in2, tabs.out, tabs.init_ptr, tabs.init_cols,
-                tabs.n_slots, tabs.m_ops,
-                block_size(row_block, c, 1, DEFAULT_ROW_BLOCK))
+    if state_bits.data_ptr() % 16:
+        state_bits = state_bits.clone()
+    out = _run("k2_unpacked", state_bits, packed,
+               int(word_block or DEFAULT_WORD_BLOCK))
     crossbar_run.launches += 1
     return out
 

@@ -16,16 +16,23 @@ JAX package, and ``chip_smoke.py`` holds the CUDA kernels of
 * :func:`bitserial_matmul_ref` — the bit-plane matmul
   ``sum_j 2^j (X_j @ W)`` in float32.
 
-Cycle rules, as in the reference: OR in the cycle's init words, gather
-every operand from the pre-cycle state, evaluate, then AND-write. Only
-the scratch column ever receives duplicate writes (NOP padding, whose
-all-ones results leave it unchanged), so an index write of
-``old & res`` is exact.
+Cycle rules, as in the reference's interpreter
+(``repro.core.executor``): OR in the cycle's init words, gather every
+operand from the pre-cycle state, evaluate, then AND every result into
+its output column (MAGIC's pull-down write): two ops of one cycle that
+write one column leave the AND of both. The per-cell scan reduces with
+a scatter minimum; the packed scan, which has no bitwise-AND scatter,
+writes a cycle's results with one index write where its real ops write
+distinct columns (every compiled program; NOP slots that share the
+scratch column write all-ones and do not count) and op by op in the
+cycles where they do not (found once per table, see
+:class:`PackedTables`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.compiler.macrocycle import fuse_macrocycles
@@ -88,7 +95,8 @@ def crossbar_run_ref(state_bits: torch.Tensor,
         x1 = st[:, ics[:, 1]].to(torch.int32)
         x2 = st[:, ics[:, 2]].to(torch.int32)
         res = _gate_eval_bits(tabs.gate_id[t, 0][None, :], x0, x1, x2)
-        st[:, ocs] = torch.minimum(st[:, ocs], res.to(torch.uint8))
+        st.scatter_reduce_(1, ocs[None, :].expand(st.shape[0], -1),
+                           res.to(torch.uint8), "amin", include_self=True)
     return st
 
 
@@ -97,13 +105,34 @@ class PackedTables:
     """Macro-fused tables on one device: ``gate_id`` ``(Tm, K, M)``
     int32, ``in_cols`` ``(Tm, K, M, 3)`` and ``out_col`` ``(Tm, K, M)``
     int64 (index tensors), ``init_words`` ``(Tm, K, C)`` int32
-    (all-ones where a cell is SET)."""
+    (all-ones where a cell is SET). ``serial`` maps each fused cycle
+    ``(t, j)`` where two real ops write one column, or a real op writes
+    a column that a NOP slot also names, to its real ``(slot, column)``
+    pairs, which the scan AND-writes one by one."""
 
     gate_id: torch.Tensor
     in_cols: torch.Tensor
     out_col: torch.Tensor
     init_words: torch.Tensor
     factor: int
+    serial: "dict[tuple[int, int], tuple[tuple[int, int], ...]]"
+
+
+def _serial_cycles(gate_id, out_col) -> "dict":
+    """The fused cycles of ``(Tm, K, M)`` tables whose real ops share an
+    output column (with each other or with a NOP slot), each with its
+    real ``(slot, column)`` pairs in slot order."""
+    serial = {}
+    for t, j in zip(*np.nonzero((gate_id != 0).any(axis=2))):
+        real = gate_id[t, j] != 0
+        outs = out_col[t, j]
+        mine = outs[real]
+        if np.unique(mine).size < mine.size or np.isin(
+                mine, outs[~real]).any():
+            slots = np.nonzero(real)[0]
+            serial[(int(t), int(j))] = tuple(
+                (int(m), int(outs[m])) for m in slots)
+    return serial
 
 
 def packed_device_tables(packed: PackedProgram, macro: int,
@@ -126,7 +155,8 @@ def packed_device_tables(packed: PackedProgram, macro: int,
             out_col=torch.as_tensor(mt.out_col, device=device).long(),
             init_words=torch.as_tensor(mt.init_words.view("int32"),
                                        device=device),
-            factor=mt.factor)
+            factor=mt.factor,
+            serial=_serial_cycles(mt.gate_id, mt.out_col))
         cache[key] = tabs
     return tabs
 
@@ -144,7 +174,12 @@ def packed_scan_body(st: torch.Tensor, tabs: PackedTables) -> torch.Tensor:
             x1 = st[:, ics[:, 1]]
             x2 = st[:, ics[:, 2]]
             res = gate_eval_packed(tabs.gate_id[t, j][None, :], x0, x1, x2)
-            st[:, ocs] = st[:, ocs] & res
+            serial = tabs.serial.get((t, j))
+            if serial is None:
+                st[:, ocs] = st[:, ocs] & res
+            else:
+                for m, o in serial:
+                    st[:, o] &= res[:, m]
     return st
 
 

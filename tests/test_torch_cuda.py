@@ -17,8 +17,11 @@ from repro_torch.kernels.crossbar_step import (  # noqa: E402
     crossbar_run, crossbar_run_packed, kernel_tables)
 from repro_torch.kernels.ref import (  # noqa: E402
     bitserial_matmul_ref, crossbar_run_ref, crossbar_run_ref_packed)
+from _tables import dup_write_table, held_table  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+FAMILIES = ["hajali", "multpim", "multpim_mac", "recomb", "rime", "stage"]
 
 
 @pytest.fixture()
@@ -230,21 +233,111 @@ def test_k1_held_table(card):
     """A random table whose cycles read columns they write runs K1's held
     path (all gathers, then the writes), bit-identical to the plain
     version."""
-    rng = np.random.default_rng(3)
-    t, m, c = 40, 12, 60
-    gate = rng.integers(0, 7, (t, m)).astype(np.int32)
-    ins = rng.integers(0, c - 1, (t, m, 3)).astype(np.int32)
-    out = np.stack([rng.permutation(c - 1)[:m] for _ in range(t)]
-                   ).astype(np.int32)
-    out[gate == 0] = c - 1
-    init = rng.random((t, c)) < 0.05
-    init[:, c - 1] = False
-    packed = packed_from_arrays(gate, ins, out, init)
+    packed = packed_from_arrays(*held_table())
+    c = packed.init_mask.shape[1]
     assert kernel_tables(packed, "cpu").held
+    rng = np.random.default_rng(3)
     st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (70, c),
                                        dtype=np.int64).astype(np.int32))
     assert torch.equal(crossbar_run_packed(st.to(card), packed).cpu(),
                        crossbar_run_ref_packed(st, packed))
+
+
+def _k2_check(card, packed, rows, seed: int, **kw) -> None:
+    """One K2 launch on random {0,1} state, bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(seed)
+    c = packed.init_mask.shape[1]
+    bits = torch.from_numpy(rng.integers(0, 2, (rows, c), dtype=np.uint8))
+    before = crossbar_run.launches
+    got = crossbar_run(bits.to(card), packed, **kw)
+    assert crossbar_run.launches == before + 1
+    assert torch.equal(got.cpu(), crossbar_run_ref(bits, packed))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_k2_every_family(card, kind, n):
+    """K2 on every compiled family at rows straddling its 32-row words
+    and its 1,024-row block."""
+    packed = compile_cached(kind, n).packed
+    for rows in (1, 31, 33, 1000, 4097):
+        _k2_check(card, packed, rows, rows + n)
+
+
+def test_k2_on_coscheduled_table(card):
+    """K2 on the fused co-scheduled table of two N = 32 MACs (C = 855,
+    not a multiple of 4: byte-wise unpack), at the default block and at
+    14 words a block."""
+    packed = Engine("torch:device=cpu").compile_batch("mac", 32, 2).packed
+    assert packed.init_mask.shape[1] == 855
+    for rows in (33, 1000, 4097):
+        _k2_check(card, packed, rows, rows)
+        _k2_check(card, packed, rows, rows, word_block=14)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_k2_held_table(card, dup):
+    """K2's held path (one warp, gathers before the writes), with and
+    without two ops of one cycle writing one column."""
+    packed = packed_from_arrays(*held_table(dup))
+    assert kernel_tables(packed, "cpu").held
+    for rows in (1, 70, 1000, 4097):
+        _k2_check(card, packed, rows, rows)
+
+
+def test_k1_and_k2_on_duplicate_write_table(card):
+    """Two NOTs write one column: both kernels leave the AND of both
+    results, as their plain versions do ([0, 0, 1, 0] on rows (a, b) =
+    (0,1), (1,0), (0,0), (1,1) with column 2 at 1)."""
+    packed = packed_from_arrays(*dup_write_table())
+    bits = torch.zeros((4, 4), dtype=torch.uint8)
+    bits[:, 0] = torch.tensor([0, 1, 0, 1])
+    bits[:, 1] = torch.tensor([1, 0, 0, 1])
+    bits[:, 2] = 1
+    got = crossbar_run(bits.to(card), packed).cpu()
+    assert got[:, 2].tolist() == [0, 0, 1, 0]
+    _k2_check(card, packed, 1000, 1)
+    for p in (packed, packed_from_arrays(*held_table(True))):
+        rng = np.random.default_rng(2)
+        st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                           (70, p.init_mask.shape[1]),
+                                           dtype=np.int64).astype(np.int32))
+        assert torch.equal(crossbar_run_packed(st.to(card), p).cpu(),
+                           crossbar_run_ref_packed(st, p))
+
+
+def test_k2_unaligned_view(card):
+    """A state that starts one byte into its storage (not 16-byte
+    aligned) gives the same result as an aligned copy."""
+    packed = compile_cached("multpim", 8).packed
+    c = packed.init_mask.shape[1]
+    rng = np.random.default_rng(4)
+    bits = torch.from_numpy(rng.integers(0, 2, (300, c), dtype=np.uint8))
+    flat = torch.zeros(300 * c + 1, dtype=torch.uint8, device=card)
+    flat[1:] = bits.flatten().to(card)
+    view = flat[1:].view(300, c)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(crossbar_run(view, packed).cpu(),
+                       crossbar_run_ref(bits, packed))
+
+
+def test_tables_too_wide_raise_before_launch(card):
+    """C + 2 > 4096 columns: both kernels raise ValueError and count no
+    launch."""
+    c = 4095
+    packed = packed_from_arrays(np.array([[2]], np.int32),
+                                np.zeros((1, 1, 3), np.int32),
+                                np.array([[1]], np.int32),
+                                np.zeros((1, c), bool))
+    k1, k2 = crossbar_run_packed.launches, crossbar_run.launches
+    with pytest.raises(ValueError, match="12-bit"):
+        crossbar_run(torch.zeros((40, c), dtype=torch.uint8, device=card),
+                     packed)
+    with pytest.raises(ValueError, match="12-bit"):
+        crossbar_run_packed(torch.zeros((2, c), dtype=torch.int32,
+                                        device=card), packed)
+    assert (crossbar_run_packed.launches, crossbar_run.launches) == (k1, k2)
 
 
 def test_linear_on_card(card):

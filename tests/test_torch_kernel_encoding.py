@@ -10,7 +10,12 @@ decodes back to the packed program's real slots in order, with the same
 init CSR, for every program family and a co-scheduled table, and a plain
 run of the records' gate form, and of the command stream the kernel
 reads (``command_stream``), equals both packages' packed references.
-The kernels themselves are held against the plain versions on a card in
+K2 (unpacked crossbar step) is K1's engine between a pack of 32 rows of
+bytes into each word and an unpack: the unpacked plain version equals
+the packed one between ``pack_rows`` and ``unpack_rows``, and a numpy
+emulation of the kernel's pack (lane per row, funnel-shifted 32-bit
+reads, ballots) and unpack gives ``pack_rows``' words and the bytes
+back. The kernels themselves are held against the plain versions on a card in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +31,7 @@ from repro.kernels.ref import (  # noqa: E402
 from repro_torch.compiler.cache import compile_cached  # noqa: E402
 from repro_torch.convert import (packed_from_arrays,  # noqa: E402
                                  words_to_numpy, words_to_torch)
+from repro_torch.core.bits import pack_rows, unpack_rows  # noqa: E402
 from repro_torch.core.isa import GATE_ARITY, Gate  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.kernels.bitserial_matmul import split_bf16x3  # noqa: E402
@@ -33,7 +39,8 @@ from repro_torch.kernels.crossbar_step import (  # noqa: E402
     MAX_RECORD_COLS, command_stream, decode_records, encode_records,
     kernel_tables)
 from repro_torch.kernels.ref import (  # noqa: E402
-    bitserial_matmul_ref, crossbar_run_ref_packed)
+    bitserial_matmul_ref, crossbar_run_ref, crossbar_run_ref_packed)
+from _tables import held_table  # noqa: E402
 
 pytestmark = pytest.mark.kernels
 
@@ -158,9 +165,9 @@ def _run_records(words: torch.Tensor, packed) -> torch.Tensor:
                    torch.full((w, 1), -1, dtype=torch.int32)], dim=1)
     records, ptr, _, _ = encode_records(packed)
     _, ins, out, inv = decode_records(records)
-    ip = tabs.init_ptr.numpy()
-    ic = tabs.init_cols.numpy()
-    for t in range(tabs.n_slots):
+    ip = tabs.init_ptr
+    ic = tabs.init_cols
+    for t in range(packed.n_cycles):
         s[:, torch.from_numpy(ic[ip[t]:ip[t + 1]]).long()] = -1
         sl = slice(ptr[t], ptr[t + 1])
         a, b, c = (s[:, torch.from_numpy(ins[sl, j]).long()]
@@ -230,7 +237,7 @@ def _check_stream(packed) -> None:
     counts = (gate_t != 0).sum(axis=1)
     assert np.array_equal(np.diff(op_ptr), counts)
     assert max_ops == tabs.max_ops == counts.max(initial=0)
-    ptr, cols = tabs.init_ptr.numpy(), tabs.init_cols.numpy()
+    ptr, cols = tabs.init_ptr, tabs.init_cols
     for t in range(gate_t.shape[0]):
         assert sorted(cols[ptr[t]:ptr[t + 1]]) == list(
             np.nonzero(packed.init_mask[t])[0])
@@ -350,3 +357,118 @@ def test_held_when_a_cycle_reads_or_rewrites_its_outputs():
                              np.array([[2], [3]], np.int32),
                              np.zeros((2, 6), bool))
     assert not encode_records(two)[3]
+
+
+# ------------------------------------------------- K2: pack and unpack ----
+def _check_identity(packed, rows: int, seed: int) -> None:
+    """The unpacked plain version equals the packed one between
+    ``pack_rows`` and ``unpack_rows``: the function K2 computes."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (rows, packed.init_mask.shape[1]), np.uint8)
+    want = crossbar_run_ref(torch.from_numpy(bits), packed).numpy()
+    words = crossbar_run_ref_packed(words_to_torch(pack_rows(bits, 32)),
+                                    packed)
+    assert np.array_equal(unpack_rows(words_to_numpy(words), rows), want)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_unpacked_run_is_packed_run_between_pack_and_unpack(kind, n):
+    """Every family at rows 1, 31, 33 and 70 (ragged last words)."""
+    packed = compile_cached(kind, n).packed
+    for rows in (1, 31, 33, 70):
+        _check_identity(packed, rows, rows + n)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_unpacked_run_is_packed_run_on_held_tables(dup):
+    packed = packed_from_arrays(*held_table(dup))
+    assert kernel_tables(packed, "cpu").held
+    for rows in (1, 33, 70):
+        _check_identity(packed, rows, rows)
+
+
+def test_unpacked_run_is_packed_run_on_coscheduled_table():
+    packed = Engine("torch:device=cpu").compile_batch("mac", 32, 2).packed
+    assert packed.init_mask.shape[1] == 855
+    _check_identity(packed, 70, 5)
+
+
+def _k2_pack(bits: np.ndarray, rng) -> np.ndarray:
+    """K2's tile load (``pack_word``) in numpy: per word, its rows'
+    bytes in a staging buffer of 32 C + 48 bytes (the rest stale),
+    read as little-endian 32-bit words; lane l takes row l from byte
+    l C, four columns per funnel shift of two words, and ballot j of
+    read k over the column group from c0 gives column c0 + 4k + j, one
+    bit per lane (rows past the word's read as 0). Returns the
+    ``(words, C)`` uint32 column words."""
+    rows, c = bits.shape
+    n_words = -(-rows // 32)
+    flat = bits.reshape(-1)
+    tile = np.zeros((n_words, c), np.uint64)
+    lanes = np.arange(32)
+    row0 = lanes * c
+    sh = (8 * (row0 & 3)).astype(np.uint64)
+    for w in range(n_words):
+        here = min(32, rows - 32 * w)
+        buf = rng.integers(0, 256, 32 * c + 48, dtype=np.uint8)
+        buf[:here * c] = flat[32 * w * c:(32 * w + here) * c]
+        p = buf.view("<u4").astype(np.uint64)
+        ok = lanes < here
+        for c0 in range(0, c, 32):
+            q = (row0 + c0) >> 2
+            lo = np.where(ok, p[q], 0)
+            for k in range(8):
+                hi = np.where(ok, p[q + k + 1], 0)
+                v = (((hi << np.uint64(32)) | lo) >> sh) & np.uint64(
+                    0xFFFFFFFF)
+                lo = hi
+                for j in range(4):
+                    col = c0 + 4 * k + j
+                    ballot = int(((v >> np.uint64(8 * j)) & np.uint64(1))
+                                 @ (np.uint64(1) << lanes.astype(np.uint64)))
+                    if col < c:
+                        tile[w, col] = ballot
+    return tile.astype(np.uint32)
+
+
+def _k2_unpack(tile: np.ndarray, rows: int, rng) -> np.ndarray:
+    """K2's tile store (``unpack_word``) in numpy: lane l writes row l of
+    each word from bit l of four column words at a time, as one 32-bit
+    store where C is a multiple of 4, else byte by byte, into a buffer of
+    stale bytes; rows past the word's are never written."""
+    n_words, c = tile.shape
+    out = []
+    for w in range(n_words):
+        here = min(32, rows - 32 * w)
+        buf = rng.integers(0, 256, 32 * c + 48, dtype=np.uint8)
+        stale = buf.copy()
+        for lane in range(here):
+            for c0 in range(0, c, 4):
+                v = 0
+                for j in range(4):
+                    if c0 + j < c:
+                        v |= ((int(tile[w, c0 + j]) >> lane) & 1) << (8 * j)
+                at = lane * c + c0
+                if c % 4 == 0:
+                    assert at % 4 == 0
+                    buf[at:at + 4] = np.array([v], "<u4").view(np.uint8)
+                else:
+                    for j in range(min(4, c - c0)):
+                        buf[at + j] = (v >> (8 * j)) & 255
+        assert np.array_equal(buf[here * c:], stale[here * c:])
+        out.append(buf[:here * c].reshape(here, c))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("rows", [1, 31, 33, 70])
+@pytest.mark.parametrize("cols", [1, 3, 6, 32, 290, 322, 460, 855])
+def test_k2_pack_and_unpack_emulation(cols, rows):
+    """The kernel's transpose order (lane = row, bit = lane, word = 32
+    rows) gives ``core/bits.pack_rows``' words at any C, C not a
+    multiple of 4 included, and its unpack gives the bytes back."""
+    rng = np.random.default_rng(cols * 100 + rows)
+    bits = rng.integers(0, 2, (rows, cols), np.uint8)
+    tile = _k2_pack(bits, rng)
+    assert np.array_equal(tile, pack_rows(bits, 32))
+    assert np.array_equal(_k2_unpack(tile, rows, rng), bits)

@@ -12,8 +12,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.compiler.cache import compile_cached  # noqa: E402
-from repro.core.bits import pack_rows  # noqa: E402
-from repro.core.executor import pack_program  # noqa: E402
+from repro.core.bits import pack_rows, unpack_rows  # noqa: E402
+from repro.core.executor import PackedProgram, pack_program  # noqa: E402
 from repro.core.isa import GATE_ARITY, Gate, Op, eval_gate  # noqa: E402
 from repro.core.program import Layout, ProgramBuilder  # noqa: E402
 from repro.kernels.crossbar_step import (  # noqa: E402
@@ -28,6 +28,7 @@ from repro_torch.kernels.crossbar_step import (  # noqa: E402
     encode_records, kernel_tables)
 from repro_torch.kernels.ref import (  # noqa: E402
     crossbar_run_ref, crossbar_run_ref_packed)
+from _tables import dup_write_table, random_dup_table  # noqa: E402
 
 pytestmark = pytest.mark.kernels
 
@@ -169,6 +170,72 @@ def test_k2_plain_matches_jax(kind, n, rows):
     assert np.array_equal(twin, wrap)
 
 
+# ------------------------------------------- a cycle ANDs its writes ----
+def _jax_table(arrays) -> PackedProgram:
+    """The JAX package's packed program of a shared dense table."""
+    c = arrays[3].shape[1]
+    return PackedProgram(*arrays, n_cols=c - 1, scratch_col=c - 1)
+
+
+@pytest.mark.parametrize("table", ["dup", "random0", "random1"])
+def test_cycle_ands_every_write(table):
+    """Where two ops of one cycle write one column, both plain versions
+    leave the AND of their results, as the JAX package's scan reference
+    and its packed Pallas kernel (interpret mode) do: on the
+    duplicate-write table, rows (a, b) = (0,1), (1,0), (0,0), (1,1) with
+    column 2 at 1 give [0, 0, 1, 0]."""
+    if table == "dup":
+        jp = _jax_table(dup_write_table())
+        state = np.zeros((4, 4), np.uint8)
+        state[:, 0], state[:, 1], state[:, 2] = [0, 1, 0, 1], [1, 0, 0, 1], 1
+    else:
+        jp = _jax_table(random_dup_table(int(table[-1])))
+        rng = np.random.default_rng(int(table[-1]) + 10)
+        state = rng.integers(0, 2, (45, jp.init_mask.shape[1]), np.uint8)
+    pp = _port(jp)
+    assert kernel_tables(pp, "cpu").held
+    twin = crossbar_run_ref(torch.from_numpy(state), pp).numpy()
+    assert np.array_equal(twin, np.asarray(jax_run_ref(jnp.asarray(state),
+                                                       jp)))
+    assert np.array_equal(twin, crossbar_run(torch.from_numpy(state),
+                                             pp).numpy())
+    words = pack_rows(state, 32)
+    pal = np.asarray(crossbar_run_pallas_packed(jnp.asarray(words), jp,
+                                                macro=1, interpret=True))
+    for macro in (1, 3):
+        got = words_to_numpy(crossbar_run_ref_packed(words_to_torch(words),
+                                                     pp, macro=macro))
+        assert np.array_equal(got, pal)
+    assert np.array_equal(unpack_rows(pal, state.shape[0]), twin)
+    if table == "dup":
+        assert twin[:, 2].tolist() == [0, 0, 1, 0]
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("kind", ["multpim", "multpim_mac", "stage",
+                                  "recomb"])
+def test_compiled_families_unchanged_by_and_writes(kind, n):
+    """Compiled programs write distinct columns in every cycle: the
+    packed scan keeps its one index write per cycle (no cycle is
+    serial), and both plain versions equal the JAX package's scan
+    references bit for bit."""
+    from repro_torch.kernels.ref import packed_device_tables
+    jp = compile_cached(kind, n).packed
+    pp = _port(jp)
+    assert packed_device_tables(pp, 1, "cpu").serial == {}
+    assert packed_device_tables(pp, 8, "cpu").serial == {}
+    rng = np.random.default_rng(n)
+    state = rng.integers(0, 2, (45, jp.init_mask.shape[1]), np.uint8)
+    twin = crossbar_run_ref(torch.from_numpy(state), pp).numpy()
+    assert np.array_equal(twin, np.asarray(jax_run_ref(jnp.asarray(state),
+                                                       jp)))
+    words = pack_rows(state, 32)
+    got = words_to_numpy(crossbar_run_ref_packed(words_to_torch(words), pp,
+                                                 macro=8))
+    assert np.array_equal(got, np.asarray(jax_run_ref_packed(
+        jnp.asarray(words), jp, macro=1)))
+
+
 # --------------------------------------------------- wrapper contract ----
 def test_wrappers_use_plain_version_on_cpu_without_counting():
     """A CPU tensor runs the plain version; the launch counters count
@@ -195,20 +262,17 @@ def test_wrappers_reject_bad_state(bad):
 
 
 def test_kernel_tables_layout_and_memo():
-    """The kernels' tables reproduce the packed program: K1's record
-    stream holds its real slots in order with per-cycle offsets, K2's
-    slot tables its unfused tables, and both share the init CSR; they
-    are uploaded once per device."""
+    """The kernels' tables reproduce the packed program: the record
+    stream holds its real slots in order with per-cycle offsets, the
+    init CSR its init cells, and the uploaded command stream is
+    :func:`command_stream`'s; they are uploaded once per device."""
     jp = compile_cached("multpim", 4).packed
     pp = _port(jp)
     tabs = kernel_tables(pp, "cpu")
     assert kernel_tables(pp, "cpu") is tabs
-    s, m = tabs.gate.shape
-    assert (s, m) == (pp.n_cycles, pp.max_ops) == jp.gate_id.shape
-    assert (tabs.n_slots, tabs.m_ops) == (s, m)
-    assert np.array_equal(tabs.gate.numpy(), jp.gate_id)
-    assert np.array_equal(tabs.in2.numpy(), jp.in_cols[..., 2])
-    assert np.array_equal(tabs.out.numpy(), jp.out_col)
+    s = pp.n_cycles
+    assert s == jp.gate_id.shape[0]
+    assert tabs.n_cols == jp.init_mask.shape[1]
     real = jp.gate_id != 0
     records, op_ptr, max_ops, held = encode_records(pp)
     assert tabs.n_records == records.size == int(real.sum())
@@ -216,7 +280,7 @@ def test_kernel_tables_layout_and_memo():
     assert np.array_equal(np.diff(op_ptr), real.sum(axis=1))
     assert tabs.stream.dtype == torch.int64
     stream, n_steps, max_step = command_stream(
-        records, op_ptr, tabs.init_ptr.numpy(), tabs.init_cols.numpy(),
+        records, op_ptr, tabs.init_ptr, tabs.init_cols,
         tabs.n_cols)
     assert np.array_equal(tabs.stream.numpy(), stream)
     assert (tabs.n_steps, tabs.max_step) == (n_steps, max_step)
@@ -224,7 +288,7 @@ def test_kernel_tables_layout_and_memo():
     assert np.array_equal(gate, jp.gate_id[real])
     assert np.array_equal(out, jp.out_col[real])
     assert np.array_equal(ins[:, 0], jp.in_cols[real][:, 0])
-    ptr, cols = tabs.init_ptr.numpy(), tabs.init_cols.numpy()
+    ptr, cols = tabs.init_ptr, tabs.init_cols
     for i in range(s):
         assert sorted(cols[ptr[i]:ptr[i + 1]]) == list(
             np.nonzero(jp.init_mask[i])[0])
