@@ -12,11 +12,17 @@ and raises on any failure. Phases, one line each:
    ``multpim``, ``multpim_mac``, ``stage`` and ``recomb`` N = 32 tables,
    with CUDA-event timings, the bytes bound and the shared-memory floor;
    then on the fused table of two co-scheduled N = 32 MACs at 2^15
-   words, and on two tables whose cycles write one column twice;
+   words, and on two tables whose cycles write one column twice; then
+   on the serve path's n = 8 tables: the resident chain's
+   ``multpim_mac``, ``stage`` and ``recomb`` and the detect-mode
+   ``residue`` check at 256 words (``serve_device``'s 8,192 lanes) and
+   at 1 word (8 lanes), and the fused round-trip and serial passes
+   ``compile_batch("mac", 8, k)``, k = 1, 2, 4, 8, at 1 word;
 4. K2 (unpacked kernel) against its plain version on ``multpim`` N = 32
    over 2^20 rows, with CUDA-event timings, then on the co-scheduled
-   table at 2^15 rows, a held table at a ragged row count and the two
-   duplicate-write tables;
+   table at 2^15 rows, a held table at a ragged row count, the two
+   duplicate-write tables, and the fused n = 8 serve tables at 1 and 8
+   rows (the round-trip passes of ``serve_unpacked``);
 5. the front door: ``Engine("torch:pack=true").compile("multpim", 32)
    .run`` over 2^20 random 32-bit pairs against numpy's exact products,
    then the same with ``pack=false``; each with its untraced wall, then
@@ -43,13 +49,41 @@ and raises on any failure. Phases, one line each:
 9. ``Engine.ragged_linear(mode="pim")`` at deepseek-moe-16b's expert
    widths (D 2048, F 1408, 64 experts, 256 tokens x top-6) against a
    host float64 per-segment oracle;
-10. one JSON line describing each kernel;
-11. ``{"ok": true, "device": {...}}`` as the last line.
+10. ``serve_compare``: the serve load trace of the reference's CI (32
+    requests, Poisson 500 req/s, seed 0, n = 8, 4 decode elements a
+    token) replayed in real time by ``compare_modes`` on
+    ``torch:pack=true`` (resident continuous, per-pass round-trip,
+    serial): tokens equal the plain-int reference in every mode, zero
+    recompiles, K1 launches in every mode; per mode tokens/s, wall,
+    passes, steps, TTFT and per-token p50/p99, and both speedups
+    (printed, not gated);
+11. ``serve_unpacked``: the same trace, continuous, on
+    ``torch:pack=false`` (no resident chain without packing: round-trip
+    passes through K2), bit-exact;
+12. ``serve_device``: the slice at full size — a ``2x4x16x8`` device
+    (1,024 crossbars, 8 lanes each at n = 8: 8,192 resident lanes),
+    8,192 requests at 8,192 req/s, continuous, bit-exact with zero
+    recompiles; an untraced run for tokens/s, TTFT and token p99, then a
+    traced run for the span seconds, and K1's CUDA-event time per pass
+    at these 256 words times the passes (the device time; K1's launch
+    returns before the card finishes, so its span holds the enqueue);
+13. ``serve_faults``: the reference CI's two gated fault runs through
+    the launcher (``--fault-check --watchdog 120``, without faults and
+    with ``--fault-rate 1e-5 --fault-seed 0``), then the faulty one at
+    ``serve_device``'s full size (8,192 requests on ``2x4x16x8``), each
+    bit-exact with zero recompiles and no abort, with the ``faults.*``
+    and ``serve.fault.*`` counters, and the faulty pass's CUDA-event time against K1's at 1
+    word (8 lanes) and 256 words (8,192 lanes); then a
+    fault-free resident chain with detection forced on (K1 runs the
+    residue program at each drain) at 8,192 lanes, exact;
+14. one JSON line describing each kernel;
+15. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
-path of phases 5, 6 and 8 and read just after (one K3 launch per
-``use_pallas=True`` call, one K1 launch per fused pass); comparison launches of
-phases 3, 4 and 7 do not count. Float32 products run without TF32
+path of phases 5, 6, 8 and 10-13 and read just after (one K3 launch per
+``use_pallas=True`` call, one K1 launch per fused pass or resident
+program pass); comparison launches of phases 3, 4, 7 and 12's timing do
+not count. Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
 and the library yardstick are full float32.
@@ -103,6 +137,18 @@ LINEAR_SHAPES = {"attn.q": (4096, 4096), "ffn.gate_up": (4096, 22016),
                  "ffn.down": (11008, 4096)}
 EXACT_SHAPE = (256, 4096)            # (K, N): 256 * 255 * 255 < 2^24
 MOE = {"d": 2048, "f": 1408, "experts": 64, "top_k": 6}
+# The serve slice: the reference CI's load trace (32 requests at 500
+# req/s, seed 0, n = 8) and a 2x4x16x8 device of 1,024 crossbars (8
+# lanes each at n = 8) under 8,192 requests arriving over about 1 s.
+SERVE_BITS = 8
+SERVE_REQUESTS = 32
+SERVE_RATE = 500.0
+DEVICE_CONFIG = "2x4x16x8"
+DEVICE_REQUESTS = 8192
+DEVICE_WORDS = DEVICE_REQUESTS // 32
+DEVICE_RATE = 8192.0
+FAULT_RATE = 1e-5
+WATCHDOG_S = 120.0
 # K3's tolerance against its plain version with float w: the
 # reference's rtol 1e-4 / atol 5e-3, with rtol taken against the scale
 # of the summed terms, |x| @ |w|. At K = 4096 and 11008 cancellation
@@ -418,6 +464,269 @@ def ragged_phase(eng, dev, tokens: int, moe: dict, seed: int) -> None:
           rtol=worst, wall_ms=round(wall * 1e3, 3))
 
 
+def report_fields(rep) -> dict:
+    """The serve metrics of one LoadReport, for a phase line."""
+    s = rep.summary()
+    return {"tokens_per_s": s["tokens_per_s"], "wall_s": s["wall_s"],
+            "requests": s["n_requests"], "tokens": s["n_tokens"],
+            "passes": rep.passes, "steps": rep.steps,
+            "recompiles": rep.recompiles, "bit_exact": rep.bit_exact,
+            "ttft_p50_us": round(s["ttft_p50_us"], 1),
+            "ttft_p99_us": round(s["ttft_p99_us"], 1),
+            "token_p50_us": round(s["token_p50_us"], 1),
+            "token_p99_us": round(s["token_p99_us"], 1)}
+
+
+def serve_trace(n_requests: int, rate: float):
+    """The seeded Poisson trace of the serve phases (seed 0)."""
+    from repro_torch.serve import TrafficConfig, generate
+    return generate(TrafficConfig(n_requests=n_requests, rate=rate,
+                                  n_bits=SERVE_BITS, seed=0))
+
+
+def serve_compare_phase(spec: str, n_requests: int, rate: float) -> int:
+    """Phase 10: compare_modes on ``spec``; hard checks tokens_match,
+    bit_exact and zero recompiles in every mode and K1 launches in every
+    mode. Returns the K1 launches of the three modes."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import crossbar_run_packed
+    from repro_torch.serve import compare_modes, harness
+    per_mode = {}
+    run_load = harness.run_load
+
+    def counted(engine, reqs, **kw):
+        k0 = crossbar_run_packed.launches
+        rep = run_load(engine, reqs, **kw)
+        per_mode[kw["mode"]] = crossbar_run_packed.launches - k0
+        return rep
+
+    crossbar_run_packed.launches = 0
+    harness.run_load = counted       # compare_modes calls run_load thrice
+    try:
+        res = compare_modes(Engine(spec), serve_trace(n_requests, rate),
+                            n_bits=SERVE_BITS)
+    finally:
+        harness.run_load = run_load
+    launches = crossbar_run_packed.launches
+    check(res["tokens_match"], "serve_compare: tokens differ from the "
+                               "reference in some mode")
+    for mode in ("continuous", "roundtrip", "serial"):
+        rep = res[mode]
+        check(rep.bit_exact and rep.recompiles == 0
+              and rep.n_requests == n_requests,
+              f"serve_compare {mode}: bit_exact={rep.bit_exact} "
+              f"recompiles={rep.recompiles} served={rep.n_requests}")
+        check(per_mode.get(mode, 0) > 0,
+              f"serve_compare {mode}: K1 never launched")
+        phase("serve_compare", mode=mode, backend=spec,
+              k1_launches=per_mode[mode], **report_fields(rep))
+    phase("serve_compare", speedup_over_serial=round(res["speedup"], 3),
+          speedup_over_roundtrip=round(res["resident_speedup"], 3),
+          tokens_match=res["tokens_match"], k1_launches=launches)
+    return launches
+
+
+def serve_unpacked_phase(spec: str, n_requests: int, rate: float) -> int:
+    """Phase 11: continuous serving on ``spec`` (``pack=false``: the
+    round-trip path through K2), bit-exact. Returns the K2 launches."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    from repro_torch.serve import run_load
+    crossbar_run.launches = 0
+    crossbar_run_packed.launches = 0
+    rep = run_load(Engine(spec), serve_trace(n_requests, rate),
+                   n_bits=SERVE_BITS)
+    k2, k1 = crossbar_run.launches, crossbar_run_packed.launches
+    check(rep.bit_exact and rep.recompiles == 0
+          and rep.n_requests == n_requests,
+          f"serve_unpacked: bit_exact={rep.bit_exact} recompiles="
+          f"{rep.recompiles} served={rep.n_requests}")
+    check(k2 == rep.passes > 0 and k1 == 0,
+          f"serve_unpacked: K2 {k2} launches for {rep.passes} passes, "
+          f"K1 {k1}")
+    phase("serve_unpacked", backend=spec, k2_launches=k2,
+          **report_fields(rep))
+    return k2
+
+
+def serve_device_phase(spec: str, device_config: str, n_requests: int,
+                       rate: float, dev) -> int:
+    """Phase 12: the device-scaled slot budget (top rung x crossbars),
+    continuous, bit-exact with zero recompiles; an untraced run, then a
+    traced one for the span split. Returns the untraced run's K1
+    launches."""
+    from repro_torch import obs
+    from repro_torch.compiler.cache import compile_cached
+    from repro_torch.device import DeviceConfig
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import crossbar_run_packed
+    from repro_torch.pim import plan_serve_slots
+    from repro_torch.serve import run_load
+    eng = Engine(spec)
+    device = DeviceConfig.parse(device_config, crossbar=eng.crossbar)
+    slots = plan_serve_slots(eng, SERVE_BITS, device=device)
+    lanes = slots.max_slots
+    check(lanes == slots.ladder[-1] * device.n_crossbars,
+          f"serve_device: {lanes} slots on {device}")
+    reqs = serve_trace(n_requests, rate)
+    crossbar_run_packed.launches = 0
+    rep = run_load(eng, reqs, n_bits=SERVE_BITS, max_slots=lanes)
+    launches = crossbar_run_packed.launches
+    check(rep.bit_exact and rep.recompiles == 0
+          and rep.n_requests == n_requests and launches > 0,
+          f"serve_device: bit_exact={rep.bit_exact} recompiles="
+          f"{rep.recompiles} served={rep.n_requests} K1={launches}")
+    # The traced run: span seconds by name (K1's span holds its
+    # enqueue; the card is waited for in backend.unpack's copy).
+    tracer = obs.get_tracer()
+    tracer.reset()
+    tracer.enable()
+    traced = run_load(eng, reqs, n_bits=SERVE_BITS, max_slots=lanes)
+    tracer.disable()
+    events = [e for e in tracer.trace_dict()["traceEvents"]
+              if e.get("ph") == "X"]
+    tracer.reset()
+    check(traced.bit_exact and traced.recompiles == 0,
+          "serve_device: the traced run is not bit-exact")
+    spans = {}
+    for e in events:
+        spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    # K1's device time per pass at these lanes (CUDA events; comparison
+    # launches, after the count was read), times the untraced run's
+    # passes: mac every pass, stage on all but the chain's first, recomb
+    # at each drain. The run's launches are warmup's 4 (mac; stage, mac;
+    # recomb), 2 passes - 1 and one per drain.
+    drains = launches - 4 - (2 * rep.passes - 1)
+    words = -(-lanes // 32)
+    per = {}
+    for kind in ("multpim_mac", "stage", "recomb"):
+        packed = compile_cached(kind, SERVE_BITS).packed
+        st = torch.zeros((words, packed.init_mask.shape[1]),
+                         dtype=torch.int32, device=dev)
+        per[kind] = time_ms(lambda: crossbar_run_packed(st, packed), 3, 20)
+    kernel_s = (rep.passes * per["multpim_mac"]
+                + (rep.passes - 1) * per["stage"]
+                + drains * per["recomb"]) / 1e3
+    phase("serve_device", backend=spec, device=str(device),
+          crossbars=device.n_crossbars, lanes=lanes, k1_launches=launches,
+          drains=drains, **report_fields(rep))
+    phase("serve_device_split",
+          k1_ms_per_pass=json.dumps({k: round(v, 5)
+                                     for k, v in per.items()}),
+          k1_device_s=round(kernel_s, 5),
+          host_rest_s=round(rep.wall_s - kernel_s, 4),
+          traced_wall_s=round(traced.wall_s, 4),
+          traced_passes=traced.passes, traced_steps=traced.steps,
+          span_s=json.dumps({k: round(v, 4)
+                             for k, v in sorted(spans.items())}))
+    return launches
+
+
+def serve_faults_phase(backend: "str | None", dev) -> int:
+    """Phase 13: the reference CI's gated fault runs through the
+    launcher on the port's default engine (``backend`` None) or
+    ``backend``, and the faulty one at full size; the faulty pass's
+    time; then a fault-free resident chain with detection forced on.
+    Returns the K1 launches of the fault-free runs."""
+    from repro_torch import obs
+    from repro_torch.compiler.cache import compile_cached
+    from repro_torch.engine import Engine
+    from repro_torch.faults import FaultModel
+    from repro_torch.kernels.crossbar_step import crossbar_run_packed
+    from repro_torch.kernels.ref import crossbar_run_ref_packed_faulty
+    from repro_torch.launch import serve as launcher
+    total = 0
+    ci = ["--traffic", str(SERVE_REQUESTS), "--traffic-rate",
+          str(SERVE_RATE)]
+    full = ["--traffic", str(DEVICE_REQUESTS), "--traffic-rate",
+            str(DEVICE_RATE), "--device-config", DEVICE_CONFIG]
+    gated = ["--pim-bits", str(SERVE_BITS), "--fault-check", "--watchdog",
+             str(WATCHDOG_S)]
+    if backend is not None:
+        gated += ["--pim-backend", backend]
+    flips = ["--fault-rate", f"{FAULT_RATE:g}", "--fault-seed", "0"]
+    for trace, extra in ((ci, []), (ci, flips), (full, flips)):
+        obs.reset_metrics()
+        crossbar_run_packed.launches = 0
+        crossbar_run_ref_packed_faulty.calls = 0
+        rep = launcher.main(trace + extra + gated)  # raises if a gate fails
+        launches = crossbar_run_packed.launches
+        faulty = crossbar_run_ref_packed_faulty.calls
+        c = obs.dump()["counters"]
+        check(rep.bit_exact and rep.recompiles == 0 and not rep.aborted
+              and rep.n_requests == int(trace[1]),
+              f"serve_faults {extra}: bit_exact={rep.bit_exact} "
+              f"recompiles={rep.recompiles} aborted={rep.aborted}")
+        check((launches > 0) == (not extra) and (faulty > 0) == bool(extra),
+              f"serve_faults {extra}: K1 {launches} launches, {faulty} "
+              f"faulty passes")
+        total += launches
+        phase("serve_faults", fault_rate=extra[1] if extra else 0,
+              device=DEVICE_CONFIG if trace is full else "one crossbar",
+              k1_launches=launches, faulty_passes=faulty,
+              counters=json.dumps({k: v for k, v in sorted(c.items())
+                                   if k.startswith(("faults.",
+                                                    "serve.fault.",
+                                                    "serve.rejected",
+                                                    "serve.watchdog"))}),
+              **report_fields(rep))
+    # The faulty pass alone (CUDA events): the mac program over the serve
+    # slots' one word and over serve_device's 256 words, on a model of
+    # the same rate that serves nothing.
+    packed = compile_cached("multpim_mac", SERVE_BITS).packed
+    model = FaultModel(key="chip-smoke-timing", seed=1, p_flip=FAULT_RATE)
+    for lanes in (8, DEVICE_REQUESTS):
+        words = -(-lanes // 32)
+        st = torch.zeros((words, packed.init_mask.shape[1]),
+                         dtype=torch.int32, device=dev)
+        faulty_ms = time_ms(lambda: crossbar_run_ref_packed_faulty(
+            st, packed, model, lanes), 2, 10)
+        k1_ms = time_ms(lambda: crossbar_run_packed(st, packed), 3, 20)
+        phase("serve_faults", faulty_pass_ms=faulty_ms, k1_pass_ms=k1_ms,
+              program="multpim_mac", n=SERVE_BITS, words=words,
+              lanes=lanes, cycles=packed.n_cycles)
+    # Detection armed without faults: K1 runs the residue program at
+    # each drain, and the chain stays exact.
+    eng = Engine(backend or "torch:pack=true")
+    rex = eng.resident(SERVE_BITS, rows=DEVICE_REQUESTS, detect=True)
+    rng = np.random.default_rng(13)
+    want = np.zeros(DEVICE_REQUESTS, dtype=object)
+    crossbar_run_packed.launches = 0
+    for step in range(4):
+        a = rng.integers(0, 1 << (SERVE_BITS - 2), DEVICE_REQUESTS)
+        b = rng.integers(0, 1 << (SERVE_BITS - 2), DEVICE_REQUESTS)
+        rex.step(a, b)
+        want += a.astype(object) * b.astype(object)
+    got = rex.drain()
+    launches = crossbar_run_packed.launches
+    check(launches == 1 + 2 * 3 + 2 and not rex.unrecovered.any()
+          and all(int(g) == int(w) for g, w in zip(got, want)),
+          f"serve_faults detect-armed chain: K1 {launches} launches "
+          f"(want 9), unrecovered {int(rex.unrecovered.sum())}")
+    total += launches
+    phase("serve_detect", lanes=DEVICE_REQUESTS, passes=4, exact=True,
+          k1_launches=launches, residue_cycles=rex.residue_entry.program
+          .n_cycles)
+    return total
+
+
+def serve_tables(eng) -> list:
+    """The n = 8 tables the serve path runs, as (name, packed, words):
+    the resident chain's programs and the detect-mode residue check at
+    ``serve_device``'s lanes and at one slot word, and the fused
+    round-trip and serial passes (one row a slot) for each rung of the
+    ladder."""
+    from repro_torch.compiler.cache import compile_cached
+    tables = [(kind, compile_cached(kind, SERVE_BITS).packed, words)
+              for kind in ("multpim_mac", "stage", "recomb", "residue")
+              for words in (DEVICE_WORDS, 1)]
+    tables += [(f"mac n={SERVE_BITS} x{k} fused",
+                eng.compile_batch("mac", SERVE_BITS, k).packed, 1)
+               for k in eng.k_ladder("mac", SERVE_BITS)]
+    return tables
+
+
 def sync(dev) -> None:
     """Wait for the card (nothing to wait for on the host)."""
     if torch.device(dev).type == "cuda":
@@ -616,6 +925,24 @@ def main() -> None:
         check(torch.equal(got, want), f"K1 disagrees with its plain version "
                                       f"on the table '{name}'")
         phase("K1", program=name, words=1000, exact=True, held=True)
+    # The serve path's tables at its own shapes (comparison launches).
+    serve = serve_tables(Engine("torch:pack=true"))
+    for name, packed, words in serve:
+        st = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (words, packed.init_mask.shape[1]),
+            dtype=np.int64).astype(np.int32)).to(dev)
+        got = crossbar_run_packed(st, packed)
+        for macro in (1, 8):
+            want = crossbar_run_ref_packed(st, packed, macro=macro)
+            torch.cuda.synchronize()
+            k1_err = max(k1_err, max_abs_err(got, want))
+            check(torch.equal(got, want),
+                  f"K1 disagrees with its plain version on the serve table "
+                  f"{name} at {words} words macro={macro}")
+        phase("K1", program=name, n=SERVE_BITS, words=words,
+              cols=packed.init_mask.shape[1], exact=True, macro="1,8",
+              ms=time_ms(lambda: crossbar_run_packed(st, packed), 3, 20))
+        del st, got, want
 
     # ------------------------------------------------- 4. K2 vs its twin ----
     mp = programs["multpim"]
@@ -650,6 +977,23 @@ def main() -> None:
         phase("K2", program=name, rows=rows, cols=packed.init_mask.shape[1],
               exact=True, ms=time_ms(lambda: crossbar_run(sb, packed), 2, 5))
         del sb, got, want
+    # The fused serve tables at the round-trip passes' rows.
+    for name, packed, _ in serve:
+        if "fused" not in name:
+            continue
+        for rows in (1, 8):
+            sb = torch.from_numpy(rng.integers(
+                0, 2, (rows, packed.init_mask.shape[1]),
+                dtype=np.uint8)).to(dev)
+            got = crossbar_run(sb, packed)
+            want = crossbar_run_ref(sb, packed)
+            torch.cuda.synchronize()
+            k2_err = max(k2_err, max_abs_err(got, want))
+            check(torch.equal(got, want), f"K2 disagrees with its plain "
+                                          f"version on {name} at {rows} rows")
+            phase("K2", program=name, rows=rows,
+                  cols=packed.init_mask.shape[1], exact=True)
+            del sb, got, want
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 5. front door ----
@@ -756,6 +1100,15 @@ def main() -> None:
     # ----------------------------------------- 9. Engine.ragged_linear ----
     ragged_phase(Engine(), dev, TOKENS, MOE, seed=9)
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 10-13. serving ----
+    main_launches["K1"] += serve_compare_phase("torch:pack=true",
+                                               SERVE_REQUESTS, SERVE_RATE)
+    main_launches["K2"] += serve_unpacked_phase("torch:pack=false",
+                                                SERVE_REQUESTS, SERVE_RATE)
+    main_launches["K1"] += serve_device_phase(
+        "torch:pack=true", DEVICE_CONFIG, DEVICE_REQUESTS, DEVICE_RATE, dev)
+    main_launches["K1"] += serve_faults_phase(None, dev)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 

@@ -59,6 +59,7 @@ def _default_builders() -> Dict[str, Callable[..., Program]]:
     from repro_torch.core.baselines import hajali_multiplier, rime_multiplier
     from repro_torch.core.matvec import multpim_mac
     from repro_torch.core.multpim import multpim_multiplier
+    from repro_torch.core.residue import residue_program
     from repro_torch.core.staging import recomb_program, stage_program
     return {
         "multpim": multpim_multiplier,
@@ -67,6 +68,7 @@ def _default_builders() -> Dict[str, Callable[..., Program]]:
         "rime": rime_multiplier,
         "stage": stage_program,
         "recomb": recomb_program,
+        "residue": residue_program,
     }
 
 

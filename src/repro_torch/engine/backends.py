@@ -23,9 +23,20 @@ Stock registry entries:
 ``"torch:device=cpu,pack=true"`` — so CLI flags map directly onto
 backend policy.
 
-Fault injection (``faults=<key>``) is not ported yet: every backend
-accepts ``faults=None``/``"none"`` and raises :class:`NotImplementedError`
-for anything else.
+Every stock backend also carries a **fault policy** (``faults=<key>``,
+e.g. ``"torch:pack=true,faults=flip@1e-5@7"``): the key resolves through
+:func:`repro_torch.faults.get_fault_model` to a seeded device-error
+model whose transient flips and stuck-at maps are injected as bitwise
+masks into the packed executors (:func:`backend_fault_model` is the
+single resolution point). ``faults=none`` (or omitting the option)
+resolves to no model and leaves every path bit-identical to a
+fault-free build. Fault injection requires the packed representation:
+torch demands ``pack=true``, and the numpy backend promotes to its
+64-bit packed interpreter. Under an active model the torch backend runs
+every pass through the plain PyTorch fault-injecting scan
+(:func:`repro_torch.kernels.ref.crossbar_run_ref_packed_faulty`), as the
+reference runs its jnp scan in place of the Pallas kernel: K1 stays the
+fault-free path.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from repro_torch.core.bits import pack_rows, unpack_rows
 from repro_torch.core.executor import PackedProgram, gate_eval_packed
 from repro_torch.core.isa import Gate
 from repro_torch.kernels.crossbar_step import crossbar_run, crossbar_run_packed
+from repro_torch.kernels.ref import crossbar_run_ref_packed_faulty
 
 __all__ = ["Backend", "NumpyBackend", "TorchBackend", "ResidentIndex",
            "supports_resident", "register_backend", "resolve_backend",
@@ -49,15 +61,20 @@ __all__ = ["Backend", "NumpyBackend", "TorchBackend", "ResidentIndex",
 
 
 def backend_fault_model(backend):
-    """``None`` when the backend's ``faults`` policy is off (no field,
-    ``None``, ``"none"`` or ``"off"``); any active policy raises
-    :class:`NotImplementedError` until fault injection is ported."""
+    """The backend's resolved :class:`repro_torch.faults.FaultModel`, or
+    ``None`` when faults are inactive — the single place a ``faults=``
+    spec becomes behavior. Inactive covers: no ``faults`` field, a
+    ``none``/``off`` key, and a model whose every rate is zero (so an
+    explicitly-zeroed model still takes the fault-free fast path and
+    stays bit-identical)."""
     spec = getattr(backend, "faults", None)
-    if spec is None or str(spec).lower() in ("none", "off"):
+    if spec is None:
         return None
-    raise NotImplementedError(
-        f"faults={spec!r}: fault injection is not ported to repro_torch "
-        f"yet (it comes with the faults slice)")
+    from repro_torch.faults import get_fault_model
+    model = get_fault_model(spec)
+    if model is None or not model.active():
+        return None
+    return model
 
 
 @runtime_checkable
@@ -98,6 +115,12 @@ class ResidentIndex:
     mac_dst: np.ndarray      # mac inputs   un ++ s_lo
     rec_dst: np.ndarray      # recomb inputs s_hi ++ c_hi ++ lo
     rec_out: np.ndarray      # recomb output out (2n bits)
+    # Optional residue-check wiring (detect mode, repro_torch.faults):
+    # the compiled "residue" program reads the same carry-save planes as
+    # recomb and emits the 5-bit (mod-3 ++ mod-7) residue pair.
+    c_res: int = 0
+    res_dst: Optional[np.ndarray] = None  # residue inputs s_hi++c_hi++lo
+    res_out: Optional[np.ndarray] = None  # residue outputs r3 ++ r7
 
 
 class _ChainBase:
@@ -107,11 +130,15 @@ class _ChainBase:
     ``first``/``step`` advance every lane one MAC pass, ``drain`` runs
     the recombination program on a *separate* state and unpacks only its
     ``out`` planes — the single host transfer of a chain's lifetime.
+    With a ``residue`` program attached (detect mode), ``residue(dev)``
+    likewise runs the mod-3/mod-7 check on a separate state and unpacks
+    only its 5 result planes.
     """
 
     def __init__(self, mac, stage, recomb, idx: ResidentIndex, rows: int,
-                 word_bits: Optional[int]):
+                 word_bits: Optional[int], residue=None):
         self.mac, self.stage, self.recomb = mac, stage, recomb
+        self.res = residue
         self.idx = idx
         self.rows = rows
         self.word_bits = word_bits
@@ -127,16 +154,32 @@ class _ChainBase:
         lanes unpacked, (W, 1) packed words with one bit per fresh lane."""
         return self._pack(np.asarray(mask, dtype=np.uint8)[:, None])
 
+    def merge_lanes(self, new, old, lanes: np.ndarray):
+        """Chain state with ``new``'s cells on ``lanes`` ((rows,) bool)
+        and ``old``'s everywhere else — detect mode's row-selected
+        replay."""
+        keep = self._pack_mask(lanes)
+        if self.word_bits is None:
+            return np.where(keep.astype(bool), new, old)
+        return (new & keep) | (old & ~keep)
+
 
 class _NumpyChain(_ChainBase):
-    """Eager numpy resident chain (unpacked uint8 or 64-wide packed)."""
+    """Eager numpy resident chain (unpacked uint8 or 64-wide packed).
+
+    An active fault model promotes the chain to the 64-bit packed
+    representation regardless of ``pack`` (fault masks are packed
+    words) and routes every program pass through the fault-injecting
+    kernel."""
 
     def __init__(self, backend: "NumpyBackend", mac, stage, recomb,
-                 idx: ResidentIndex, rows: int):
+                 idx: ResidentIndex, rows: int, residue=None):
+        self.model = backend_fault_model(backend)
+        packed_words = backend.pack or self.model is not None
         super().__init__(mac, stage, recomb, idx, rows,
-                         64 if backend.pack else None)
+                         64 if packed_words else None, residue=residue)
         self.backend = backend
-        if backend.pack:
+        if packed_words:
             self._w = -(-rows // 64)
             self._full = ~np.uint64(0)
             self._dt = np.uint64
@@ -150,7 +193,15 @@ class _NumpyChain(_ChainBase):
 
     def _run(self, packed: PackedProgram, st: np.ndarray) -> np.ndarray:
         with obs.span("backend.kernel", backend=self.backend.name,
-                      rows=self.rows, cycles=packed.n_cycles):
+                      rows=self.rows, cycles=packed.n_cycles,
+                      faulty=self.model is not None):
+            if self.model is not None:
+                from repro_torch.faults.inject import (
+                    numpy_kernel_packed_faulty, pass_fault_tensors)
+                flips, sa0, sa1 = pass_fault_tensors(
+                    self.model, packed, self.rows, 64)
+                return numpy_kernel_packed_faulty(packed, st, flips,
+                                                  sa0, sa1)
             if self.word_bits is None:
                 return NumpyBackend._kernel_unpacked(packed, st)
             return NumpyBackend._kernel_packed(packed, st)
@@ -187,7 +238,18 @@ class _NumpyChain(_ChainBase):
         rst = self._zeros(idx.c_rec)
         rst[:, idx.rec_dst] = dev[:, idx.stage_src]
         rst = self._run(self.recomb, rst)
-        out = rst[:, idx.rec_out]
+        return self._read(rst[:, idx.rec_out])
+
+    def residue(self, dev: np.ndarray) -> np.ndarray:
+        """Run the residue program on a separate state; ``(rows, 5)``
+        residue planes."""
+        idx = self.idx
+        rst = self._zeros(idx.c_res)
+        rst[:, idx.res_dst] = dev[:, idx.stage_src]
+        rst = self._run(self.res, rst)
+        return self._read(rst[:, idx.res_out])
+
+    def _read(self, out: np.ndarray) -> np.ndarray:
         if self.word_bits is None:
             return out
         with obs.span("backend.unpack", backend=self.backend.name,
@@ -203,6 +265,11 @@ class NumpyBackend:
     ``pack=True`` switches to the bit-plane packed interpreter: 64
     crossbar rows per ``uint64`` word, word-wide bitwise gate
     evaluation, ``np.bitwise_and.at`` AND-scatter.
+
+    ``faults=<key>`` activates a device-error model (see
+    :func:`backend_fault_model`); fault masks are packed words, so an
+    active model always runs the 64-bit packed fault-injecting
+    interpreter, even with ``pack=False``.
     """
 
     pack: bool = False
@@ -211,12 +278,29 @@ class NumpyBackend:
 
     def run_state(self, packed: PackedProgram, state: np.ndarray) -> np.ndarray:
         """Interpret the packed tables over ``state`` (rows, C) {0,1}."""
-        backend_fault_model(self)
+        model = backend_fault_model(self)
+        if model is not None:
+            return self._run_packed_faulty(packed, state, model)
         if self.pack:
             return self._run_packed(packed, state)
         with obs.span("backend.kernel", backend=self.name,
                       rows=state.shape[0], cycles=packed.n_cycles):
             return self._run_unpacked(packed, state)
+
+    def _run_packed_faulty(self, packed: PackedProgram, state: np.ndarray,
+                           model) -> np.ndarray:
+        from repro_torch.faults.inject import (numpy_kernel_packed_faulty,
+                                               pass_fault_tensors)
+        state = np.asarray(state, dtype=np.uint8)
+        rows = state.shape[0]
+        with obs.span("backend.pack", backend=self.name, rows=rows):
+            st = pack_rows(state, 64)
+        flips, sa0, sa1 = pass_fault_tensors(model, packed, rows, 64)
+        with obs.span("backend.kernel", backend=self.name, rows=rows,
+                      cycles=packed.n_cycles, faulty=True):
+            st = numpy_kernel_packed_faulty(packed, st, flips, sa0, sa1)
+        with obs.span("backend.unpack", backend=self.name, rows=rows):
+            return unpack_rows(st, rows)
 
     def _run_unpacked(self, packed: PackedProgram,
                       state: np.ndarray) -> np.ndarray:
@@ -289,10 +373,11 @@ class NumpyBackend:
 
     def resident_chain(self, mac: PackedProgram, stage: PackedProgram,
                        recomb: PackedProgram, idx: ResidentIndex,
-                       rows: int) -> _NumpyChain:
+                       rows: int, residue: Optional[PackedProgram] = None
+                       ) -> _NumpyChain:
         """Build a resident MAC chain over this backend's interpreter."""
-        backend_fault_model(self)
-        return _NumpyChain(self, mac, stage, recomb, idx, rows)
+        return _NumpyChain(self, mac, stage, recomb, idx, rows,
+                           residue=residue)
 
 
 # ---------------------------------------------------------------- torch ----
@@ -320,7 +405,14 @@ class TorchBackend:
     (``None`` = their default, 1,024 rows), rounded up to 32-row words
     (:attr:`word_block`, at most 32); each kernel halves its words per
     block until its shared memory fits.
-    ``faults`` must be off until fault injection is ported.
+
+    ``faults=<key>`` activates a device-error model (see
+    :func:`backend_fault_model`); it requires ``pack=True`` and runs
+    every pass through the cycle-at-a-time fault-injecting scan in plain
+    PyTorch on the state's device
+    (:func:`repro_torch.kernels.ref.crossbar_run_ref_packed_faulty`),
+    not K1: injection is a simulation study, and K1 stays the fault-free
+    path, as the reference's Pallas kernel does.
     """
 
     device: str = "cuda"
@@ -339,7 +431,6 @@ class TorchBackend:
                 f"versions on the host")
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device!r}")
-        backend_fault_model(self)
 
     @property
     def word_block(self) -> Optional[int]:
@@ -348,18 +439,35 @@ class TorchBackend:
         return None if self.row_block is None else max(
             1, -(-self.row_block // 32))
 
+    def _fault_model(self):
+        """The active fault model, or ``None``; raises for one without
+        ``pack=true`` (fault masks are packed words)."""
+        model = backend_fault_model(self)
+        if model is not None and not self.pack:
+            raise ValueError(
+                f"fault injection on the {self.name} backend requires "
+                f"pack=true (spec '{self.name}:pack=true,"
+                f"faults={self.faults}') — fault masks are packed words")
+        return model
+
     def run_state(self, packed: PackedProgram, state: np.ndarray) -> np.ndarray:
         """Run the program over ``state`` (rows, C) {0,1} on the device."""
+        model = self._fault_model()
         state = np.asarray(state, dtype=np.uint8)
         rows = state.shape[0]
         if self.pack:
             with obs.span("backend.pack", backend=self.name, rows=rows):
                 words = words_to_torch(pack_rows(state, 32), self.device)
             with obs.span("backend.kernel", backend=self.name, rows=rows,
-                          cycles=packed.n_cycles):
-                final = crossbar_run_packed(
-                    words, packed, macro=_macro_factor(self.macro),
-                    word_block=self.word_block)
+                          cycles=packed.n_cycles,
+                          faulty=model is not None):
+                if model is not None:
+                    final = crossbar_run_ref_packed_faulty(words, packed,
+                                                           model, rows)
+                else:
+                    final = crossbar_run_packed(
+                        words, packed, macro=_macro_factor(self.macro),
+                        word_block=self.word_block)
             with obs.span("backend.unpack", backend=self.name, rows=rows):
                 return unpack_rows(words_to_numpy(final), rows)
         with obs.span("backend.kernel", backend=self.name, rows=rows,
@@ -370,12 +478,18 @@ class TorchBackend:
 
     def resident_chain(self, mac: PackedProgram, stage: PackedProgram,
                        recomb: PackedProgram, idx: ResidentIndex,
-                       rows: int) -> "_TorchChain":
-        """Build a packed device-resident MAC chain (needs pack=true)."""
+                       rows: int, residue: Optional[PackedProgram] = None
+                       ) -> "_TorchChain":
+        """Build a packed device-resident MAC chain (needs pack=true);
+        under an active fault model, the fault-injecting chain."""
         if not self.pack:
             raise ValueError("resident execution on the torch backend "
                              "requires pack=true (spec 'torch:pack=true')")
-        return _TorchChain(self, mac, stage, recomb, idx, rows)
+        if self._fault_model() is not None:
+            return _FaultyTorchChain(self, mac, stage, recomb, idx, rows,
+                                     residue=residue)
+        return _TorchChain(self, mac, stage, recomb, idx, rows,
+                           residue=residue)
 
 
 class _TorchChain(_ChainBase):
@@ -391,12 +505,12 @@ class _TorchChain(_ChainBase):
     operand scatter — are torch index ops on the device over int64 index
     tensors built once here. The host sends only the packed operand
     planes and the packed fresh word per step, and reads back once per
-    drain.
+    drain. In detect mode ``residue`` is one more K1 launch per check.
     """
 
     def __init__(self, backend: TorchBackend, mac, stage, recomb,
-                 idx: ResidentIndex, rows: int):
-        super().__init__(mac, stage, recomb, idx, rows, 32)
+                 idx: ResidentIndex, rows: int, residue=None):
+        super().__init__(mac, stage, recomb, idx, rows, 32, residue=residue)
         self.backend = backend
         self.name = backend.name
         self.device = torch.device(backend.device)
@@ -412,6 +526,8 @@ class _TorchChain(_ChainBase):
         self._stage_src, self._stage_dst = ix(idx.stage_src), ix(idx.stage_dst)
         self._mac_src, self._mac_dst = ix(idx.mac_src), ix(idx.mac_dst)
         self._rec_dst, self._rec_out = ix(idx.rec_dst), ix(idx.rec_out)
+        if residue is not None:
+            self._res_dst, self._res_out = ix(idx.res_dst), ix(idx.res_out)
 
     def _zeros(self, c: int):
         return torch.zeros((self._w, c), dtype=torch.int32,
@@ -452,9 +568,47 @@ class _TorchChain(_ChainBase):
         rst = self._zeros(self.idx.c_rec)
         rst[:, self._rec_dst] = dev[:, self._stage_src]
         rst = self._run(self.recomb, rst)
+        return self._read(rst[:, self._rec_out])
+
+    def residue(self, dev) -> np.ndarray:
+        """One ``residue`` launch on a separate state, then a read of its
+        ``(rows, 5)`` residue planes."""
+        rst = self._zeros(self.idx.c_res)
+        rst[:, self._res_dst] = dev[:, self._stage_src]
+        rst = self._run(self.res, rst)
+        return self._read(rst[:, self._res_out])
+
+    def _read(self, words) -> np.ndarray:
         with obs.span("backend.unpack", backend=self.name, rows=self.rows):
-            return unpack_rows(words_to_numpy(rst[:, self._rec_out]),
-                               self.rows)
+            return unpack_rows(words_to_numpy(words), self.rows)
+
+    def merge_lanes(self, new, old, lanes: np.ndarray):
+        """Chain state with ``new``'s cells on ``lanes`` ((rows,) bool)
+        and ``old``'s everywhere else, on the device."""
+        keep = words_to_torch(self._pack_mask(lanes), self.device)
+        return (new & keep) | (old & ~keep)
+
+
+class _FaultyTorchChain(_TorchChain):
+    """Resident chain under an active fault model: every program pass
+    runs the cycle-at-a-time fault-injecting scan
+    (:func:`repro_torch.kernels.ref.crossbar_run_ref_packed_faulty`) on
+    the state's device, drawing that pass's transient flips and the
+    epoch's stuck maps from the backend's model — the counterpart of the
+    reference's ``_FaultyJaxChain``. The column moves between passes are
+    :class:`_TorchChain`'s."""
+
+    def __init__(self, backend: TorchBackend, mac, stage, recomb,
+                 idx: ResidentIndex, rows: int, residue=None):
+        super().__init__(backend, mac, stage, recomb, idx, rows,
+                         residue=residue)
+        self.model = backend_fault_model(backend)
+
+    def _run(self, packed: PackedProgram, st):
+        with obs.span("backend.kernel", backend=self.name, rows=self.rows,
+                      cycles=packed.n_cycles, faulty=True):
+            return crossbar_run_ref_packed_faulty(st, packed, self.model,
+                                                  self.rows)
 
 
 def supports_resident(backend) -> bool:

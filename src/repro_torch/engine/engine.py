@@ -33,10 +33,9 @@ bit-serial matmul kernel K3
 The default backend is :class:`~repro_torch.engine.backends.TorchBackend`
 on CUDA with bit-plane packing: the port runs on the card unless the
 caller asks for the CPU (``backend="torch:device=cpu"`` or ``"numpy"``).
-
-Not ported yet, and raising :class:`NotImplementedError` until its
-slice lands: drain-time fault detection (``resident(detect=True)`` — the
-faults slice).
+:meth:`Engine.resident` arms drain-time fault detection
+(:mod:`repro_torch.faults`) when the backend carries an active fault
+model.
 """
 from __future__ import annotations
 
@@ -52,7 +51,8 @@ from repro_torch import obs
 from repro_torch.core.bits import from_bits, to_bits
 from repro_torch.core.costmodel import CrossbarSpec
 
-from .backends import Backend, resolve_backend, supports_resident
+from .backends import (Backend, backend_fault_model, resolve_backend,
+                       supports_resident)
 from .executable import (BatchedExecutable, Executable, GroupedExecutable,
                          ResidentExecutable)
 
@@ -73,13 +73,8 @@ OP_KINDS: Dict[str, str] = {
     "multpim_mac": "multpim_mac",
     "stage": "stage",
     "recomb": "recomb",
+    "residue": "residue",
 }
-
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (it comes with the "
-        f"{slice_name} slice)")
 
 
 @dataclass(frozen=True)
@@ -368,28 +363,40 @@ class Engine:
         the shared cache and binds them to a backend chain that keeps
         the accumulator state on the device between passes. The backend
         must support resident execution (numpy always; torch with
-        ``pack=true``). ``detect=True`` (fault detection) is not ported
-        yet and raises.
+        ``pack=true``).
+
+        ``detect`` controls drain-time corruption detection
+        (:mod:`repro_torch.faults`): ``None`` (the default policy) turns
+        it on exactly when the backend carries an active fault model
+        (``faults=<key>`` in its spec), so fault-free runs compile no
+        extra program and stay bit-identical; ``True``/``False`` force
+        it. Detection compiles the ``residue`` check program alongside
+        the chain and arms bounded replay-recovery in
+        :meth:`ResidentExecutable.drain`.
         """
-        if detect:
-            raise _not_ported("resident(detect=True) (fault detection)",
-                              "faults")
         bk = resolve_backend(backend, self.backend)
         if not supports_resident(bk):
             raise ValueError(
                 f"backend '{bk.name}' does not support resident "
                 f"execution (torch needs pack=true, e.g. "
                 f"'torch:pack=true')")
+        if detect is None:
+            detect = backend_fault_model(bk) is not None
         with obs.span("engine.resident", n=n, rows=rows,
-                      backend=bk.name, detect=False):
+                      backend=bk.name, detect=detect):
             mac_e = self.cache.get_or_compile(
                 "multpim_mac", n, config=self.pass_config, verify=verify)
             stage_e = self.cache.get_or_compile(
                 "stage", n, config=self.pass_config, verify=verify)
             rec_e = self.cache.get_or_compile(
                 "recomb", n, config=self.pass_config, verify=verify)
+            res_e = None
+            if detect:
+                res_e = self.cache.get_or_compile(
+                    "residue", n, config=self.pass_config, verify=verify)
         return ResidentExecutable(mac_e, stage_e, rec_e, bk, rows,
-                                  crossbar=self.crossbar, engine=self)
+                                  crossbar=self.crossbar, engine=self,
+                                  residue_entry=res_e)
 
     def staging_cycles(self, n: int) -> int:
         """Measured cycles of the compiled inter-pass ``stage`` program."""

@@ -407,8 +407,23 @@ class ResidentExecutable:
     keep the usual no-overflow precondition (the running inner product
     fits in 2N bits).
 
-    Detect mode (the reference package's residue check and replay) is
-    not ported yet: :meth:`Engine.resident` raises for ``detect=True``.
+    **Detect mode** (``residue_entry`` given — :mod:`repro_torch.faults`):
+    every :meth:`step` also feeds a host-side
+    :class:`~repro_torch.faults.ResidueShadow` and records the pass
+    operands in a bounded replay window; :meth:`drain` then runs the
+    compiled ``residue`` program (device-side mod-3/mod-7 check against
+    the shadow) plus an exact host-boundary check on the drained token,
+    and on detected corruption replays the affected lanes from their
+    last restart point — healthy lanes ride along with value-neutral
+    ``(0, 0)`` operands, so recovery is pure re-execution with zero
+    recompiles. Replay is bounded by ``retry`` (a
+    :class:`~repro_torch.faults.RetryPolicy`); lanes still corrupt after
+    the last attempt are flagged in :attr:`unrecovered` for the serve
+    layer to quarantine (:attr:`ignore` masks quarantined lanes out of
+    all checks and persists across :meth:`reset`). Transient faults
+    re-draw on every replay pass (the fault model's pass counter is
+    monotone), so replay converges; stuck-at faults persist and surface
+    as ``unrecovered``.
     """
 
     def __init__(self, mac_entry: "CompiledEntry",
@@ -416,12 +431,15 @@ class ResidentExecutable:
                  recomb_entry: "CompiledEntry",
                  backend: Backend, rows: int,
                  crossbar: CrossbarSpec = CrossbarSpec(),
-                 engine: "Optional[Engine]" = None):
+                 engine: "Optional[Engine]" = None,
+                 residue_entry: "Optional[CompiledEntry]" = None,
+                 retry: "Optional[RetryPolicy]" = None):
         if rows < 1:
             raise ValueError("rows >= 1")
         self.mac_entry = mac_entry
         self.stage_entry = stage_entry
         self.recomb_entry = recomb_entry
+        self.residue_entry = residue_entry
         self.backend = backend
         self.rows = rows
         self.crossbar = crossbar
@@ -430,9 +448,25 @@ class ResidentExecutable:
         self.index = self._build_index()
         self.chain = backend.resident_chain(
             mac_entry.packed, stage_entry.packed, recomb_entry.packed,
-            self.index, rows)
+            self.index, rows,
+            residue=residue_entry.packed if residue_entry else None)
         self._dev = None
         self.passes = 0
+        # --- detect-mode state (all inert when residue_entry is None) --
+        self.detect = residue_entry is not None
+        self.ignore = np.zeros(rows, dtype=bool)       # quarantined lanes
+        self.unrecovered = np.zeros(rows, dtype=bool)  # last drain's losses
+        self.replayed_passes = 0
+        if self.detect:
+            from repro_torch.faults import DEFAULT_POLICY, ResidueShadow
+            self.retry = retry or DEFAULT_POLICY
+            self.shadow = ResidueShadow(rows, self.n)
+            self._history: List = []      # (a, b, fresh) per pass
+            self._hist_base = 0           # absolute index of _history[0]
+            self._last_fresh = np.zeros(rows, dtype=np.int64)
+        else:
+            self.retry = retry
+            self.shadow = None
 
     def _build_index(self) -> ResidentIndex:
         mi = self.mac_entry.program.input_map
@@ -445,6 +479,15 @@ class ResidentExecutable:
         def cols(m, *names):
             return np.asarray(sum((list(m[x]) for x in names), []),
                               dtype=np.int64)
+
+        res_kw = {}
+        if self.residue_entry is not None:
+            qi = self.residue_entry.program.input_map
+            qo = self.residue_entry.program.output_map
+            res_kw = dict(
+                c_res=self.residue_entry.packed.init_mask.shape[1],
+                res_dst=cols(qi, "s_hi", "c_hi", "lo"),
+                res_out=cols(qo, "r3", "r7"))
 
         return ResidentIndex(
             c_mac=self.mac_entry.packed.init_mask.shape[1],
@@ -459,7 +502,8 @@ class ResidentExecutable:
             mac_src=cols(so, "un", "s_lo"),
             mac_dst=cols(mi, "un", "s_lo"),
             rec_dst=cols(ri, "s_hi", "c_hi", "lo"),
-            rec_out=cols(ro, "out"))
+            rec_out=cols(ro, "out"),
+            **res_kw)
 
     # ---------------------------------------------------------- views ----
     @property
@@ -537,6 +581,7 @@ class ResidentExecutable:
                           rows=self.rows, n=self.n,
                           modeled_cycles=self.mac_cycles):
                 self._dev = self.chain.first(planes)
+            fresh_eff = np.ones(self.rows, dtype=bool)
         else:
             if fresh is None:
                 fresh = np.zeros(self.rows, dtype=bool)
@@ -549,25 +594,150 @@ class ResidentExecutable:
                           rows=self.rows, n=self.n,
                           modeled_cycles=self.pass_cycles):
                 self._dev = self.chain.step(self._dev, planes, fresh)
+            fresh_eff = fresh
         self.passes += 1
         if self.engine is not None:
             self.engine.runs += 1
+        if self.detect:
+            self._note_pass(np.asarray(a, dtype=np.int64),
+                            np.asarray(b, dtype=np.int64), fresh_eff)
 
-    def drain(self) -> np.ndarray:
-        """Recombine the live carry-save state: ``(rows,)`` exact ints,
-        each lane's accumulated ``sum(a_i * b_i) mod 2^(2N)``.
-        Non-destructive — lanes keep accumulating afterwards."""
-        if self._dev is None:
-            raise RuntimeError("no live chain state to drain (call step "
-                               "at least once)")
+    # -------------------------------------------------- detect/recover ----
+    def _note_pass(self, a: np.ndarray, b: np.ndarray,
+                   fresh: np.ndarray) -> None:
+        """Track one pass for the replay window: update the expected-
+        value shadow, append the operands, and advance each lane's last
+        restart point. A lane whose expected value is exactly 0 is a
+        free restart point (products are non-negative, so value 0 means
+        *every* term since the real restart was 0, and a fresh restart
+        reproduces it) — this bounds the window for idle lanes."""
+        self.shadow.absorb(a, b, fresh)
+        self._history.append((a.copy(), b.copy(),
+                              np.asarray(fresh, dtype=bool).copy()))
+        here = self._hist_base + len(self._history) - 1
+        restart = fresh | self.shadow.zero_lanes()
+        self._last_fresh = np.where(restart, here, self._last_fresh)
+        # Trim history nobody can ever need (quarantined lanes are never
+        # replayed, so they don't pin the window).
+        live = ~self.ignore
+        lo = (int(self._last_fresh[live].min()) if live.any()
+              else here + 1)
+        drop = lo - self._hist_base
+        if drop > 0:
+            del self._history[:drop]
+            self._hist_base = lo
+
+    def _replay(self, bad: np.ndarray) -> None:
+        """Re-execute the ``bad`` lanes' operand history from their last
+        restart points, with only those lanes' wordlines selected: the
+        crossbar drives the replayed rows and every other row keeps its
+        pre-replay cells verbatim (modelled as a lane-masked merge of
+        the device words, :meth:`merge_lanes` of the chain). Without the
+        row select, transients injected *during* a replay round corrupt
+        healthy lanes and recovery random-walks instead of converging.
+        No shadow/history updates: the window already describes the
+        target state."""
+        snap = self._dev          # chain passes never write their input
+        start = int(self._last_fresh[bad].min())
+        end = self._hist_base + len(self._history)
+        with obs.span("exec.replay", backend=self.backend.name,
+                      rows=int(bad.sum()), passes=end - start):
+            for i in range(start, end):
+                a, b, _ = self._history[i - self._hist_base]
+                sel = bad & (self._last_fresh <= i)
+                ra = np.where(sel, a, 0)
+                rb = np.where(sel, b, 0)
+                f2 = bad & (self._last_fresh == i)
+                planes = self._operand_planes(ra, rb)
+                self._dev = self.chain.step(self._dev, planes, f2)
+                self.replayed_passes += 1
+            self._dev = self.chain.merge_lanes(self._dev, snap, bad)
+        obs.counter("faults.replayed_passes").inc(end - start)
+
+    def _drain_once(self) -> np.ndarray:
         with obs.span("exec.drain", backend=self.backend.name,
                       rows=self.rows, n=self.n,
                       modeled_cycles=self.recomb_cycles):
             bits = self.chain.drain(self._dev)
             return from_bits(np.asarray(bits, dtype=np.uint8))
 
+    def _check(self, vals: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+        """``(bad, res_bad)`` lane masks for one drain attempt: the
+        device-side residue check plus the exact host-boundary token
+        check (the drain crosses to the host anyway; checking there
+        models host-side ECC and catches recombination-pass corruption
+        the accumulator residue cannot see)."""
+        from repro_torch.faults import decode_residues
+        active = ~self.ignore
+        with obs.span("exec.residue", backend=self.backend.name,
+                      rows=self.rows, n=self.n):
+            res_bits = np.asarray(self.chain.residue(self._dev),
+                                  dtype=np.uint8)
+        r3, r7 = decode_residues(res_bits)
+        e3, e7 = self.shadow.residues()
+        res_bad = ((r3 != e3) | (r7 != e7)) & active
+        tok_bad = (np.not_equal(vals, self.shadow.values()).astype(bool)
+                   & active)
+        return res_bad | tok_bad, res_bad
+
+    def drain(self) -> np.ndarray:
+        """Recombine the live carry-save state: ``(rows,)`` exact ints,
+        each lane's accumulated ``sum(a_i * b_i) mod 2^(2N)``.
+        Non-destructive — lanes keep accumulating afterwards.
+
+        In detect mode each drain is checked (residue program + exact
+        host-boundary compare) and corrupted lanes are replayed, up to
+        the retry policy's attempt budget; lanes still corrupt at the
+        end are flagged in :attr:`unrecovered` (their returned values
+        are the corrupt ones — the serve layer decides quarantine)."""
+        if self._dev is None:
+            raise RuntimeError("no live chain state to drain (call step "
+                               "at least once)")
+        if not self.detect:
+            return self._drain_once()
+        ever_bad = np.zeros(self.rows, dtype=bool)
+        for attempt in range(self.retry.max_attempts):
+            vals = self._drain_once()
+            bad, res_bad = self._check(vals)
+            if not bad.any():
+                if ever_bad.any():
+                    obs.counter("faults.recovered").inc(
+                        int(ever_bad.sum()))
+                self.unrecovered = np.zeros(self.rows, dtype=bool)
+                return vals
+            obs.counter("faults.detected").inc(int(bad.sum()))
+            if res_bad.any():
+                obs.counter("faults.detected_residue").inc(
+                    int(res_bad.sum()))
+            ever_bad |= bad
+            if attempt >= self.retry.max_retries:
+                break
+            self.retry.note_retry(attempt, sleep=False)
+            self._replay(bad)
+        recovered = ever_bad & ~bad
+        if recovered.any():
+            obs.counter("faults.recovered").inc(int(recovered.sum()))
+        self.unrecovered = bad.copy()
+        self.retry.note_exhausted()
+        obs.counter("faults.unrecovered").inc(int(bad.sum()))
+        obs.instant("faults.drain_unrecovered", rows=int(bad.sum()))
+        return vals
+
+    def quarantine(self, lanes: np.ndarray) -> None:
+        """Mask ``lanes`` (index array or bool mask) out of all future
+        corruption checks and replays — the hook the serve batcher uses
+        for persistently-failing slots. Persists across :meth:`reset`."""
+        self.ignore[np.asarray(lanes)] = True
+
     def reset(self) -> None:
         """Forget the live state; the next :meth:`step` starts a fresh
-        chain in every lane."""
+        chain in every lane. Quarantined lanes (:attr:`ignore`) stay
+        quarantined — that is device knowledge, not chain state."""
         self._dev = None
         self.passes = 0
+        self.unrecovered = np.zeros(self.rows, dtype=bool)
+        if self.detect:
+            self.shadow.reset()
+            self._history = []
+            self._hist_base = 0
+            self._last_fresh = np.zeros(self.rows, dtype=np.int64)

@@ -13,6 +13,12 @@ JAX package, and ``chip_smoke.py`` holds the CUDA kernels of
   for uint32; every gate evaluates word-wide with bitwise ops, and the
   loop runs over the macro-fused tables
   (:mod:`repro_torch.compiler.macrocycle`).
+* :func:`crossbar_run_ref_packed_faulty` — one pass of the packed scan
+  with a fault model's masks threaded through, cycle at a time: the
+  twin of the reference's ``_faulty_scan``. It is not a kernel's plain
+  version but the port's fault-injecting executor on any device: the
+  reference runs its jnp scan, not the Pallas kernel, under a fault
+  model, and the port runs this scan, not K1.
 * :func:`bitserial_matmul_ref` — the bit-plane matmul
   ``sum_j 2^j (X_j @ W)`` in float32.
 
@@ -40,7 +46,7 @@ from repro_torch.core.executor import PackedProgram
 from repro_torch.core.isa import Gate
 
 __all__ = ["crossbar_run_ref", "crossbar_run_ref_packed",
-           "bitserial_matmul_ref",
+           "crossbar_run_ref_packed_faulty", "bitserial_matmul_ref",
            "packed_scan_body", "packed_device_tables", "gate_eval_packed",
            "PackedTables"]
 
@@ -174,13 +180,20 @@ def packed_scan_body(st: torch.Tensor, tabs: PackedTables) -> torch.Tensor:
             x1 = st[:, ics[:, 1]]
             x2 = st[:, ics[:, 2]]
             res = gate_eval_packed(tabs.gate_id[t, j][None, :], x0, x1, x2)
-            serial = tabs.serial.get((t, j))
-            if serial is None:
-                st[:, ocs] = st[:, ocs] & res
-            else:
-                for m, o in serial:
-                    st[:, o] &= res[:, m]
+            _and_write(st, tabs, t, j, ocs, res)
     return st
+
+
+def _and_write(st: torch.Tensor, tabs: PackedTables, t: int, j: int,
+               ocs: torch.Tensor, res: torch.Tensor) -> None:
+    """AND fused cycle ``(t, j)``'s results into their output columns:
+    one index write, or op by op where real ops share a column."""
+    serial = tabs.serial.get((t, j))
+    if serial is None:
+        st[:, ocs] = st[:, ocs] & res
+    else:
+        for m, o in serial:
+            st[:, o] &= res[:, m]
 
 
 def crossbar_run_ref_packed(state_words: torch.Tensor,
@@ -201,6 +214,67 @@ def crossbar_run_ref_packed(state_words: torch.Tensor,
 
 
 crossbar_run_ref_packed.calls = 0
+
+
+def crossbar_run_ref_packed_faulty(state_words: torch.Tensor,
+                                   packed: PackedProgram, model,
+                                   rows: int) -> torch.Tensor:
+    """One *faulty* pass of ``packed`` over ``state_words`` ``(W, C)``
+    int32 at the table width, ``rows`` crossbar rows packed 32 per word,
+    on the state's device; returns the final words as a new tensor.
+
+    Draws the pass's fault tensors from ``model``
+    (:func:`repro_torch.faults.pass_fault_tensors`, which advances the
+    model's pass counter) and runs the tables cycle at a time (flip
+    sites index per-cycle tables, so macro fusion does not apply). Per
+    cycle, as the reference's ``_faulty_scan`` and the numpy
+    ``numpy_kernel_packed_faulty``: OR in the init words, gather, XOR
+    the cycle's flip words into the gate results, AND every result into
+    its column, then enforce the stuck maps ``(st & ~sa0) | sa1``, which
+    also apply once to the loaded state. Cycles without a flip skip the
+    XOR, and a model without stuck cells skips the stuck maps: neither
+    changes a bit.
+    """
+    from repro_torch.faults.inject import pass_fault_tensors
+    c = packed.init_mask.shape[1]
+    w = -(-rows // 32)
+    if (state_words.dim() != 2 or tuple(state_words.shape) != (w, c)
+            or state_words.dtype != torch.int32):
+        raise ValueError(f"state must be ({w}, {c}) int32, got "
+                         f"{tuple(state_words.shape)} {state_words.dtype}")
+    crossbar_run_ref_packed_faulty.calls += 1
+    dev = state_words.device
+    flips, sa0, sa1 = pass_fault_tensors(model, packed, rows, 32)
+    hit = np.flatnonzero(flips.reshape(flips.shape[0], -1).any(axis=1))
+    flip_at = dict(zip(hit.tolist(), torch.from_numpy(
+        np.ascontiguousarray(flips[hit]).view(np.int32)).to(dev)))
+    stuck = bool(sa0.any() or sa1.any())
+    if stuck:
+        keep = ~torch.from_numpy(sa0.view(np.int32)).to(dev)
+        set1 = torch.from_numpy(sa1.view(np.int32)).to(dev)
+    tabs = packed_device_tables(packed, 1, dev)
+    st = state_words.clone()
+    if stuck:
+        st &= keep
+        st |= set1
+    for t in range(tabs.gate_id.shape[0]):
+        ics, ocs = tabs.in_cols[t, 0], tabs.out_col[t, 0]
+        st |= tabs.init_words[t, 0][None, :]
+        x0 = st[:, ics[:, 0]]
+        x1 = st[:, ics[:, 1]]
+        x2 = st[:, ics[:, 2]]
+        res = gate_eval_packed(tabs.gate_id[t, 0][None, :], x0, x1, x2)
+        flip = flip_at.get(t)
+        if flip is not None:
+            res = res ^ flip
+        _and_write(st, tabs, t, 0, ocs, res)
+        if stuck:
+            st &= keep
+            st |= set1
+    return st
+
+
+crossbar_run_ref_packed_faulty.calls = 0
 
 
 def bitserial_matmul_ref(x: torch.Tensor, w: torch.Tensor,

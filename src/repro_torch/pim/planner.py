@@ -22,8 +22,7 @@ per-scope cycles/MAC plus a per-token cycle estimate.
 The port's copy of ``repro.pim.planner``. It reads a model config by
 duck typing (``d_model``, ``d_ff``, ``layer_kinds()``, ``moe``, ...: the
 attributes of the reference's ``ModelConfig``), since the model configs
-are not ported yet; :class:`DeviceCapacityError` lives here until the
-device hierarchy is ported.
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,16 +32,12 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch import obs
 from repro_torch.core.costmodel import CrossbarSpec, gemm_cost
+from repro_torch.device.config import DeviceCapacityError, DeviceConfig
 
 __all__ = ["GemmShape", "PIMPlan", "plan_model", "BlockLinear",
            "LinearGroup", "BlockPlan", "block_linears", "plan_block",
            "ServeSlotPlan", "plan_serve_slots", "gemms_from_config",
            "projection_shapes", "DeviceCapacityError"]
-
-
-class DeviceCapacityError(ValueError):
-    """The device has no free crossbar left for another placement (what
-    a ``placer`` of :func:`plan_block` raises when it is full)."""
 
 
 @dataclass(frozen=True)
@@ -232,7 +227,7 @@ class LinearGroup:
     # readable.
     executable: Optional[object] = field(default=None, repr=False)
     # Physical placement in a device hierarchy: the crossbar coordinate
-    # a placer assigned (a device coordinate), or None for the
+    # a placer assigned (:class:`repro_torch.device.Coord`), or None for the
     # flat single-crossbar-per-group model.
     coord: Optional[object] = None
 
@@ -371,14 +366,14 @@ def plan_block(cfg, engine=None,
 
     ``placer`` maps each group onto a physical crossbar of a device
     hierarchy: any ``placer(label, scope) -> coordinate`` callable
-    (the reference's ``repro.device.CoordAllocator.place`` is one). The
+    (:meth:`repro_torch.device.CoordAllocator.place` is the stock one). The
     returned coordinate lands in :attr:`LinearGroup.coord`; without a
     placer groups keep the flat parallel-crossbars model
     (``coord=None``). The planner itself stays device-agnostic — it
     only calls back.
 
     ``on_capacity`` decides what happens when the placer raises
-    :class:`DeviceCapacityError`: ``"raise"`` (default)
+    :class:`repro_torch.device.DeviceCapacityError`: ``"raise"`` (default)
     propagates — a plan that does not fit the device is an error;
     ``"shed"`` degrades gracefully — the group is dropped *before* its
     compile (no wasted compilation), its label is recorded in
@@ -472,7 +467,8 @@ class ServeSlotPlan:
 
 def plan_serve_slots(engine, n_bits: int = 8, *, op: str = "mac",
                      max_slots: Optional[int] = None,
-                     device=None) -> ServeSlotPlan:
+                     device: Optional[DeviceConfig] = None
+                     ) -> ServeSlotPlan:
     """Derive the serving slot budget from the engine's column budget.
 
     The admission controller's ``max_live`` and the batcher's dynamic-K
@@ -481,11 +477,11 @@ def plan_serve_slots(engine, n_bits: int = 8, *, op: str = "mac",
     pow2 rungs up to that cap (:meth:`Engine.k_ladder`), and the slot
     budget is the top rung — so every admitted sequence always has a
     precompiled pass width to ride. ``max_slots`` clamps the budget
-    (e.g. the deprecated ``--pim-k`` override pinning batch width).
+    (the launcher's ``--traffic-slots``).
 
     ``device`` scales the budget to a device hierarchy: anything with an
-    ``n_crossbars`` attribute (the reference's
-    ``repro.device.DeviceConfig``). The ladder stays *per crossbar* (each fused pass still compiles for one
+    ``n_crossbars`` attribute (:class:`repro_torch.device.DeviceConfig`).
+    The ladder stays *per crossbar* (each fused pass still compiles for one
     crossbar), but the slot budget becomes ``top rung x n_crossbars`` —
     the batcher drains an over-wide live set as one pass per crossbar.
     """

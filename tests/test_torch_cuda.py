@@ -1,7 +1,9 @@
 """repro_torch on a CUDA card: K1, K2 and K3 against their plain
 PyTorch versions, the engine's packed/unpacked front door and resident
-chain against exact integer results, and the PIM linear layers against
-float64 oracles. Every test skips without a card; on one,
+chain against exact integer results, the PIM linear layers against
+float64 oracles, and serving (resident through K1, fault-checked,
+unpacked through K2) against the plain-int reference tokens. Every test
+skips without a card; on one,
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it runs where JAX is not installed)."""
 import numpy as np
@@ -21,7 +23,8 @@ from _tables import dup_write_table, held_table  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-FAMILIES = ["hajali", "multpim", "multpim_mac", "recomb", "rime", "stage"]
+FAMILIES = ["hajali", "multpim", "multpim_mac", "recomb", "residue", "rime",
+            "stage"]
 
 
 @pytest.fixture()
@@ -32,7 +35,9 @@ def card():
 
 
 @pytest.mark.parametrize("kind,n", [("multpim", 8), ("multpim_mac", 8),
-                                    ("rime", 8), ("stage", 8)])
+                                    ("rime", 8), ("stage", 8),
+                                    ("recomb", 8), ("residue", 8),
+                                    ("residue", 16)])
 def test_kernels_match_plain_versions(card, kind, n):
     """K1 at several word counts and fusion depths, and K2 on a ragged
     row count, bit-identical to their plain versions."""
@@ -188,6 +193,26 @@ def test_k3_float_w_across_magnitudes(card):
                                  8).double()
     assert ((got - exact).abs() <= 1e-4 * terms).all()
     assert ((got - plain).abs() <= 1e-4 * terms).all()
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_kernels_on_serve_fused_tables(card, k):
+    """The round-trip and serial serve passes' fused tables,
+    compile_batch("mac", 8, k): K1 at one word (one row a slot) and at
+    8 words, at macro 1 and 8, and K2 at 1 and 8 rows, bit-identical to
+    their plain versions."""
+    packed = Engine("torch:device=cpu").compile_batch("mac", 8, k).packed
+    c = packed.init_mask.shape[1]
+    rng = np.random.default_rng(k)
+    for words in (1, 8):
+        st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (words, c),
+                                           dtype=np.int64).astype(np.int32))
+        for macro in (1, 8):
+            got = crossbar_run_packed(st.to(card), packed, macro=macro)
+            assert torch.equal(got.cpu(),
+                               crossbar_run_ref_packed(st, packed, macro))
+    for rows in (1, 8):
+        _k2_check(card, packed, rows, rows + k)
 
 
 @pytest.mark.parametrize("words", [1, 33, 45, 300])
@@ -394,3 +419,65 @@ def test_linear_on_card(card):
             got[lo:lo + c].double(),
             seg * xq.scale.double() * wq.scale.double(), rtol=1e-6, atol=0)
         lo += c
+
+
+def _serve_trace(n_requests=32, rate=500.0):
+    from repro_torch.serve import TrafficConfig, generate
+    return generate(TrafficConfig(n_requests=n_requests, rate=rate,
+                                  n_bits=8, seed=0))
+
+
+def test_serve_continuous_on_card(card):
+    """Continuous serving on packed torch: every request's tokens equal
+    the plain-int reference, and each scheduler step launches K1 once on
+    a chain's first pass (mac), twice on every later pass (stage, mac),
+    and once more (recomb) when it drains."""
+    from repro_torch.serve import ContinuousBatcher, reference_tokens
+    eng = Engine("torch:pack=true")
+    b = ContinuousBatcher(eng, n_bits=8)
+    assert b.resident
+    for r in _serve_trace():
+        b.queue.submit(r, 0.0)
+    b.warmup()
+    compiles0 = eng.stats()["compiles"]
+    steps = 0
+    while not b.idle:
+        b._admit(0.0)
+        first = b._rex._dev is None
+        drains = any(s is not None and s.steps_left == 1 for s in b.slots)
+        before = crossbar_run_packed.launches
+        b.step()
+        want = (1 if first else 2) + (1 if drains else 0)
+        assert crossbar_run_packed.launches - before == want
+        steps += 1
+    assert steps > 0 and len(b.finished_reqs) == 32
+    assert eng.stats()["compiles"] == compiles0
+    for r in b.finished_reqs:
+        assert r.tokens == reference_tokens(r, 8)
+
+
+@pytest.mark.parametrize("key", ["flip@1e-5@0", "flip@5e-5@0"])
+def test_serve_fault_check_on_card(card, key):
+    """The fault-checked run on the card: injected flips (through the
+    plain PyTorch faulty scan on the card) detected and repaired; the
+    tokens bit-exact, zero recompiles, no abort."""
+    from repro_torch.faults import get_fault_model
+    from repro_torch.serve import run_load
+    get_fault_model(key).reset()
+    rep = run_load(Engine(f"torch:pack=true,faults={key}"), _serve_trace(),
+                   realtime=False, watchdog_s=120)
+    assert rep.bit_exact and rep.escaped_tokens == 0
+    assert rep.recompiles == 0 and not rep.aborted
+    assert rep.n_requests == 32
+
+
+def test_serve_unpacked_through_k2_on_card(card):
+    """torch:pack=false serves on the round-trip path through K2,
+    bit-exact."""
+    from repro_torch.serve import run_load
+    before = (crossbar_run_packed.launches, crossbar_run.launches)
+    rep = run_load(Engine("torch:pack=false"), _serve_trace(),
+                   realtime=False)
+    assert rep.bit_exact and rep.recompiles == 0 and rep.n_requests == 32
+    assert crossbar_run.launches - before[1] == rep.passes > 0
+    assert crossbar_run_packed.launches == before[0]

@@ -12,7 +12,7 @@ from repro.engine import Engine as JaxEngine  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.engine.backends import (  # noqa: E402
-    TorchBackend, resolve_backend, supports_resident)
+    TorchBackend, backend_fault_model, resolve_backend, supports_resident)
 from repro_torch.kernels.ref import crossbar_run_ref_packed  # noqa: E402
 
 pytestmark = pytest.mark.core
@@ -196,17 +196,26 @@ def test_torch_backend_policy():
         Engine("torch:device=cpu,pack=false").resident(8, rows=4)
     exe = Engine(PORT[0]).compile("multpim", 4)
     assert exe.cost().pack and exe.cost().cycles == exe.n_cycles
-    with pytest.raises(NotImplementedError, match="faults"):
-        resolve_backend("torch:device=cpu,faults=flip@1e-3")
+    flips = resolve_backend("torch:device=cpu,faults=flip@1e-3")
+    assert backend_fault_model(flips).p_flip == 1e-3
     assert resolve_backend("torch:device=cpu,faults=none").faults == "none"
+    assert backend_fault_model(
+        resolve_backend("torch:device=cpu,faults=none")) is None
+    with pytest.raises(ValueError, match="pack=true"):
+        Engine("torch:device=cpu,pack=false,faults=flip@1e-3").compile(
+            "multpim", 4).run({"a": [3], "b": [5]})
 
 
-def test_unported_paths_raise_not_implemented():
-    """Fault detection and injection are the paths still to port; the
-    co-scheduling and PIM-linear paths have their parity tests in
-    tests/test_torch_coschedule.py and tests/test_torch_pim.py."""
+def test_detect_and_fault_paths_run():
+    """Drain-time fault detection and fault injection run on the torch
+    backend; their parity tests are in tests/test_torch_faults.py."""
     eng = Engine(PORT[0])
-    with pytest.raises(NotImplementedError, match="faults"):
-        eng.resident(8, rows=4, detect=True)
-    with pytest.raises(NotImplementedError, match="faults"):
-        resolve_backend("torch:device=cpu,faults=sa0@1e-3")
+    rex = eng.resident(8, rows=4, detect=True)
+    assert rex.detect and rex.residue_entry is not None
+    rex.step([1, 2, 3, 4], [5, 6, 7, 8])
+    assert [int(v) for v in rex.drain()] == [5, 12, 21, 32]
+    assert not rex.unrecovered.any()
+    assert not eng.resident(8, rows=4).detect
+    bk = resolve_backend("torch:device=cpu,faults=sa0@1e-3")
+    assert backend_fault_model(bk).p_sa0 == 1e-3
+    assert eng.resident(8, rows=4, backend=bk).detect
