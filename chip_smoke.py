@@ -76,24 +76,54 @@ and raises on any failure. Phases, one line each:
     word (8 lanes) and 256 words (8,192 lanes); then a
     fault-free resident chain with detection forced on (K1 runs the
     residue program at each drain) at 8,192 lanes, exact;
-14. one JSON line describing each kernel;
-15. ``{"ok": true, "device": {...}}`` as the last line.
+14. ``multpim_area``: K1 (macro 1 and 8) and K2 against their plain
+    versions on the ``multpim_area`` N = 32 tables (T = 867, M = 32,
+    C = 368) over 2^20 rows, with CUDA-event timings, the bytes bound
+    and K1's shared-memory floor, then the front door
+    ``Engine("torch:pack=true").compile("multpim_area", 32).run`` over
+    2^20 random 32-bit pairs against numpy's exact products;
+15. ``trace_replay``: two N = 32 groups (two MACs, 855 columns; a
+    multiplier and a RIME multiplier, 950), first K1 (macro 1 and 8)
+    and K2 against their plain versions on each group's fused tables
+    at 1,024 rows; then a ``TraceRecorder`` on ``serve_device``'s
+    ``2x4x16x8`` device over three passes of each group, 1,024 rows on
+    the card's default engine, every slot against numpy's exact
+    products; the trace dumped, loaded and ``verify_replay``-ed through
+    the host interpreter (``Engine("numpy")``), then through
+    ``Engine("torch:pack=true")`` (K1) and ``Engine("torch:pack=false")``
+    (K2), every D2H record checked, with the launches replay made
+    counted;
+16. ``block_trace``: ``charge(block_trace(plan_block(gemma2-9b with
+    every PIM scope on, placed on 2x4x16x8)))`` on the card's default
+    engine, with its latency, tokens/s and ``capacity(100_000)``; then
+    ``disk_cache``:
+    ``multpim`` N = 32 compiled cold into an empty disk cache and
+    loaded by a fresh ``ProgramCache`` from disk with identical tables,
+    K1 bit-exact on the loaded entry;
+17. one JSON line describing each kernel;
+18. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
-path of phases 5, 6, 8 and 10-13 and read just after (one K3 launch per
-``use_pallas=True`` call, one K1 launch per fused pass or resident
-program pass); comparison launches of phases 3, 4, 7 and 12's timing do
-not count. Float32 products run without TF32
+path of phases 5, 6, 8, 10-13, 14's front door and 15's recording and
+replays, and read just after (one K3 launch per ``use_pallas=True``
+call, one K1 or K2 launch per fused pass, resident program pass or
+replayed EXEC); comparison launches of phases 3, 4, 7, 12's timing,
+14, 15's group tables and 16 do not count. The program cache spills to an empty directory
+under ``build/`` for the run (``REPRO_CACHE_DIR``), removed at the end. Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
 and the library yardstick are full float32.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,6 +187,17 @@ WATCHDOG_S = 120.0
 # with its terms, not with its result.
 K3_RTOL = 1e-4
 K3_ATOL = 5e-3
+# The slice of device traces: two N = 32 groups recorded on DEVICE_CONFIG
+# and replayed. The reference example's MAC group, [("mac", n, 2, "w1"),
+# ("mac", n, 1, "w3")], needs 3 x 427 = 1,281 columns at N = 32, more
+# than a 1,024-column crossbar holds, so one copy each of w1 and w3.
+REPLAY_GROUPS = ([("mac", N_BITS, 1, "w1"), ("mac", N_BITS, 1, "w3")],
+                 [("multpim", N_BITS, 1, "m"), ("rime", N_BITS, 1, "r")])
+REPLAY_ROWS = 1024
+REPLAY_PASSES = 3
+BLOCK_ARCH = "gemma2-9b"
+CAPACITY_TARGET = 100_000
+BUILD = Path(__file__).resolve().parent / "build"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -711,6 +752,313 @@ def serve_faults_phase(backend: "str | None", dev) -> int:
     return total
 
 
+def area_phase(rng, dev, sm_clock_hz: float) -> dict:
+    """Phase 14: K1 (macro 1 and 8) and K2 against their plain versions
+    on the multpim_area N = 32 tables over 2^20 rows (comparison
+    launches), then the front door over 2^20 pairs (its launch counted
+    from 0). Returns both kernels' rows, errors and main-path launches."""
+    from repro_torch.compiler.cache import compile_cached
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    from repro_torch.kernels.ref import (crossbar_run_ref,
+                                         crossbar_run_ref_packed)
+    packed = compile_cached("multpim_area", N_BITS).packed
+    t, m = packed.gate_id.shape
+    c = packed.init_mask.shape[1]
+    tables = f"T={t},M={m},C={c}"
+    st = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (WORDS, c), dtype=np.int64).astype(np.int32)
+    ).to(dev)
+    got = crossbar_run_packed(st, packed)
+    k1_err = 0.0
+    for macro in (1, 8):
+        want = crossbar_run_ref_packed(st, packed, macro=macro)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, max_abs_err(got, want))
+        check(torch.equal(got, want), f"K1 disagrees with its plain version "
+                                      f"on multpim_area macro={macro}")
+    ms = time_ms(lambda: crossbar_run_packed(st, packed), 3, 20)
+    plain = time_ms(lambda: crossbar_run_ref_packed(st, packed, macro=8),
+                    1, 3)
+    bms, by = bound_ms(packed, WORDS, 4)
+    k1 = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+          "smem_floor_ms": smem_floor_ms(packed, WORDS, sm_clock_hz),
+          "words": WORDS}
+    phase("multpim_area", kernel="K1", n=N_BITS, tables=tables,
+          exact=True, macro="1,8", **k1)
+    del st, got, want
+    sb = torch.from_numpy(rng.integers(0, 2, (ROWS, c),
+                                       dtype=np.uint8)).to(dev)
+    got = crossbar_run(sb, packed)
+    want = crossbar_run_ref(sb, packed)
+    torch.cuda.synchronize()
+    k2_err = max_abs_err(got, want)
+    check(torch.equal(got, want), "K2 disagrees with its plain version on "
+                                  "multpim_area")
+    del got, want
+    bms, by = bound_ms(packed, ROWS, 1)
+    k2 = {"ms": time_ms(lambda: crossbar_run(sb, packed), 2, 10),
+          "plain_ms": time_ms(lambda: crossbar_run_ref(sb, packed), 0, 2),
+          "bound_ms": bms, "bound_by": by, "rows": ROWS}
+    phase("multpim_area", kernel="K2", n=N_BITS, tables=tables,
+          exact=True, **k2)
+    del sb
+    torch.cuda.empty_cache()
+    # The front door over 2^20 random 32-bit pairs (the main path).
+    a = rng.integers(0, 1 << N_BITS, ROWS, dtype=np.uint64)
+    b = rng.integers(0, 1 << N_BITS, ROWS, dtype=np.uint64)
+    exe = Engine("torch:pack=true").compile("multpim_area", N_BITS)
+    crossbar_run_packed.launches = 0
+    crossbar_run.launches = 0
+    t0 = time.perf_counter()
+    out = exe.run({"a": a, "b": b})["out"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": crossbar_run_packed.launches,
+                "K2": crossbar_run.launches}
+    check(launches == {"K1": 1, "K2": 0},
+          f"multpim_area front door launched {launches}")
+    check(np.array_equal(out.astype(np.uint64), a * b),
+          "multpim_area front door products disagree with numpy")
+    phase("multpim_area", op="multpim_area", n=N_BITS, rows=ROWS,
+          pack=True, exact=True, launches=launches, wall_s=round(wall, 3),
+          cycles=exe.n_cycles, memristors=exe.program.n_memristors)
+    return {"k1": k1, "k2": k2, "k1_err": k1_err, "k2_err": k2_err,
+            "launches": launches}
+
+
+def replay_batches(eng, group, rng) -> tuple:
+    """One pass's operand sets for ``group`` and each slot's (a, b):
+    MAC slots as the serve path's bit planes of ``a*b + 0 + 0``,
+    multipliers as 32-bit integers."""
+    zeros = np.zeros(REPLAY_ROWS, dtype=object)
+    ops, pairs = [], []
+    for op, n, copies, _ in group:
+        for _ in range(copies):
+            if op == "mac":
+                a = rng.integers(0, 1 << (n - 2), REPLAY_ROWS)
+                b = rng.integers(0, 1 << (n - 2), REPLAY_ROWS)
+                ops.append(eng.mac_inputs(n, a, b, zeros, zeros))
+            else:
+                a = rng.integers(0, 1 << n, REPLAY_ROWS, dtype=np.uint64)
+                b = rng.integers(0, 1 << n, REPLAY_ROWS, dtype=np.uint64)
+                ops.append({"a": a, "b": b})
+            pairs.append((op, n, a, b))
+    return ops, pairs
+
+
+def replay_products(eng, results, pairs) -> bool:
+    """Every slot of a recorded pass against numpy's exact products: a
+    multiplier's ``out``, and a MAC's carry-save ``s + c``."""
+    for out, (op, n, a, b) in zip(results, pairs):
+        if op == "mac":
+            s, c = eng.mac_accumulate(n, out)
+            got = [int(x) + int(y) for x, y in zip(s, c)]
+        else:
+            got = [int(v) for v in out["out"]]
+        if got != [int(p) * int(q) for p, q in zip(a, b)]:
+            return False
+    return True
+
+
+def replay_tables_phase(groups, rng, dev) -> dict:
+    """K1 (macro 1 and 8) and K2 against their plain versions on each
+    replay group's fused tables at the replay's REPLAY_ROWS rows
+    (comparison launches). Returns each kernel's largest error."""
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    from repro_torch.kernels.ref import (crossbar_run_ref,
+                                         crossbar_run_ref_packed)
+    errs = {"K1": 0.0, "K2": 0.0}
+    for spec, gex in zip(REPLAY_GROUPS, groups):
+        packed = gex.packed
+        t, c = packed.gate_id.shape[0], packed.init_mask.shape[1]
+        st = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (REPLAY_ROWS // 32, c), dtype=np.int64
+        ).astype(np.int32)).to(dev)
+        got = crossbar_run_packed(st, packed)
+        for macro in (1, 8):
+            want = crossbar_run_ref_packed(st, packed, macro=macro)
+            torch.cuda.synchronize()
+            errs["K1"] = max(errs["K1"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"K1 disagrees with its plain "
+                                          f"version on {spec} macro={macro}")
+        sb = torch.from_numpy(rng.integers(0, 2, (REPLAY_ROWS, c),
+                                           dtype=np.uint8)).to(dev)
+        got = crossbar_run(sb, packed)
+        want = crossbar_run_ref(sb, packed)
+        torch.cuda.synchronize()
+        errs["K2"] = max(errs["K2"], max_abs_err(got, want))
+        check(torch.equal(got, want), f"K2 disagrees with its plain version "
+                                      f"on {spec}")
+        phase("trace_replay", group=spec, cycles=t, cols=c,
+              words=REPLAY_ROWS // 32, rows=REPLAY_ROWS, k1_exact=True,
+              macro="1,8", k2_exact=True)
+    return errs
+
+
+def trace_replay_phase(dev) -> dict:
+    """Phase 15: K1 and K2 against their plain versions on each
+    REPLAY_GROUPS group's tables; then record REPLAY_PASSES passes of
+    each group on the card's default engine over DEVICE_CONFIG, every
+    slot against numpy's exact products, dump and load the trace,
+    verify_replay it through the host interpreter, then through a packed
+    engine (K1) and an unpacked one (K2). Returns the main-path launches
+    of each kernel (the recording's and each replay's, counted from 0)
+    and the comparisons' largest errors."""
+    from repro_torch.device import CommandTrace, DeviceConfig, TraceRecorder
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    eng = Engine()
+    device = DeviceConfig.parse(DEVICE_CONFIG, crossbar=eng.crossbar)
+    rng = np.random.default_rng(15)
+    groups = [eng.compile_group(g) for g in REPLAY_GROUPS]   # outside
+    errs = replay_tables_phase(groups, rng, dev)
+    batches = [[replay_batches(eng, g, rng) for g in REPLAY_GROUPS]
+               for _ in range(REPLAY_PASSES)]
+    rec = TraceRecorder(device)
+    results = []
+    crossbar_run_packed.launches = 0
+    crossbar_run.launches = 0
+    t0 = time.perf_counter()
+    for per_pass in batches:
+        for gex, (ops, _) in zip(groups, per_pass):
+            results.append(gex.run(ops, recorder=rec))
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    total = {"K1": crossbar_run_packed.launches, "K2": crossbar_run.launches}
+    passes = len(groups) * REPLAY_PASSES
+    check(total == {"K1": passes, "K2": 0},
+          f"trace_replay recording launched {total} for {passes} passes")
+    pairs = [p for per_pass in batches for _, p in per_pass]
+    check(all(replay_products(eng, r, p) for r, p in zip(results, pairs)),
+          "trace_replay: a recorded slot disagrees with numpy's products")
+    t0 = time.perf_counter()
+    text = rec.trace.dumps()
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = CommandTrace.loads(text)
+    load_s = time.perf_counter() - t0
+    check(back.dumps() == text, "trace_replay: dumps(loads(text)) != text")
+    execs = len(back.by_kind("EXEC"))
+    d2h = len(back.by_kind("D2H"))
+    check(execs == passes, f"trace_replay: {execs} EXEC records for "
+                           f"{passes} passes")
+    t0 = time.perf_counter()
+    checked = back.verify_replay(Engine("numpy"))
+    host_s = time.perf_counter() - t0
+    check(checked == d2h > 0, f"trace_replay numpy: {checked} of {d2h} D2H "
+                              f"records checked")
+    phase("trace_replay", engine="numpy", d2h_checked=checked, exact=True,
+          products_exact=True, replay_s=round(host_s, 4))
+    replay = {}
+    for spec, kern in (("torch:pack=true", "K1"), ("torch:pack=false", "K2")):
+        replayer = Engine(spec)
+        crossbar_run_packed.launches = 0
+        crossbar_run.launches = 0
+        t0 = time.perf_counter()
+        checked = back.verify_replay(replayer)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        counts = {"K1": crossbar_run_packed.launches,
+                  "K2": crossbar_run.launches}
+        check(checked == d2h > 0,
+              f"trace_replay {spec}: {checked} of {d2h} D2H records checked")
+        check(counts[kern] == execs and sum(counts.values()) == execs,
+              f"trace_replay {spec}: launches {counts} for {execs} EXECs")
+        total[kern] += counts[kern]
+        replay[kern] = {"launches": counts[kern], "replay_s": replay_s}
+        phase("trace_replay", engine=spec, d2h_checked=checked,
+              exact=True, launches=counts, replay_s=round(replay_s, 4))
+    phase("trace_replay", device=str(device), groups=len(groups),
+          passes=passes, rows=REPLAY_ROWS, records=len(back.records),
+          text_bytes=len(text.encode()), record_s=round(record_s, 4),
+          dump_s=round(dump_s, 4), load_s=round(load_s, 4),
+          host_replay_s=round(host_s, 4),
+          k1_replay_launches=replay["K1"]["launches"],
+          k2_replay_launches=replay["K2"]["launches"],
+          k1_replay_s=round(replay["K1"]["replay_s"], 4),
+          k2_replay_s=round(replay["K2"]["replay_s"], 4))
+    return {"launches": total, "errs": errs}
+
+
+def block_trace_phase() -> None:
+    """Phase 16a: charge a modeled gemma2-9b block (every PIM scope on)
+    planned on the card's default engine and placed on DEVICE_CONFIG."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import (CoordAllocator, DeviceConfig,
+                                    block_trace, charge)
+    from repro_torch.engine import Engine
+    from repro_torch.pim import plan_block
+    cfg = dataclasses.replace(get_config(BLOCK_ARCH), pim_linear_mode="pim",
+                              pim_block_mode="full")
+    eng = Engine()
+    device = DeviceConfig.parse(DEVICE_CONFIG, crossbar=eng.crossbar)
+    t0 = time.perf_counter()
+    plan = plan_block(cfg, eng, placer=CoordAllocator(device).place)
+    trace = block_trace(plan, device)
+    rep = charge(trace)
+    secs = time.perf_counter() - t0
+    check(np.isfinite(rep.latency_us) and rep.latency_us > 0
+          and rep.tokens_per_sec > 0 and rep.capacity(CAPACITY_TARGET) >= 1,
+          f"block_trace: latency_us={rep.latency_us} "
+          f"tokens_per_sec={rep.tokens_per_sec}")
+    phase("block_trace", arch=BLOCK_ARCH, scopes=",".join(plan.scopes),
+          groups=len(plan.groups), device=str(device),
+          records=len(trace.records), crit_cycles=rep.crit_cycles,
+          latency_us=rep.latency_us, tokens_per_sec=rep.tokens_per_sec,
+          energy_uj=rep.energy_uj,
+          capacity_100k=rep.capacity(CAPACITY_TARGET),
+          seconds=round(secs, 4))
+
+
+def disk_cache_phase(rng, dev) -> None:
+    """Phase 16b: multpim N = 32 compiled cold into an empty disk cache,
+    then loaded by a fresh ProgramCache from disk: identical tables, and
+    K1 on the loaded entry equal to its plain version (comparison
+    launch)."""
+    from repro_torch.compiler import ProgramCache
+    from repro_torch.kernels.crossbar_step import crossbar_run_packed
+    from repro_torch.kernels.ref import crossbar_run_ref_packed
+    run_dir = os.environ["REPRO_CACHE_DIR"]
+    os.environ["REPRO_CACHE_DIR"] = tempfile.mkdtemp(prefix="disk-",
+                                                     dir=run_dir)
+    try:
+        t0 = time.perf_counter()
+        cold = ProgramCache(use_disk=True)
+        built = cold.get_or_compile("multpim", N_BITS)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = ProgramCache(use_disk=True)
+        loaded = warm.get_or_compile("multpim", N_BITS)
+        load_s = time.perf_counter() - t0
+    finally:
+        os.environ["REPRO_CACHE_DIR"] = run_dir
+    check(not built.from_disk and cold.stats()["compiles"] == 1,
+          f"disk_cache: the cold compile was {cold.stats()}")
+    check(loaded.from_disk and warm.stats()["disk_hits"] == 1
+          and warm.stats()["compiles"] == 0 and loaded.verified.ok,
+          f"disk_cache: the second cache gave {warm.stats()}")
+    for name in ("gate_id", "in_cols", "out_col", "init_mask"):
+        check(np.array_equal(getattr(loaded.packed, name),
+                             getattr(built.packed, name)),
+              f"disk_cache: loaded {name} differs from the compiled one")
+    c = loaded.packed.init_mask.shape[1]
+    st = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (WORDS, c), dtype=np.int64).astype(np.int32)
+    ).to(dev)
+    got = crossbar_run_packed(st, loaded.packed)
+    want = crossbar_run_ref_packed(st, built.packed)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "disk_cache: K1 on the loaded entry "
+                                  "disagrees with the plain version")
+    phase("disk_cache", program="multpim", n=N_BITS, from_disk=True,
+          identical_tables=True, k1_exact=True, words=WORDS,
+          cold_compile_s=round(cold_s, 4), disk_load_s=round(load_s, 4))
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -826,10 +1174,22 @@ def span_seconds(tracer) -> dict:
 
 
 def main() -> None:
-    """Run every phase on card 0; raise on the first failure."""
+    """Run every phase on card 0 with the program cache's disk spill in
+    an empty directory under ``build/``; raise on the first failure."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
+    BUILD.mkdir(exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="program-cache-", dir=BUILD)
+    os.environ["REPRO_CACHE_DIR"] = cache_dir
+    try:
+        run_phases()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run_phases() -> None:
+    """The phases of the module docstring, in order."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1109,10 +1469,25 @@ def main() -> None:
     main_launches["K1"] += serve_device_phase(
         "torch:pack=true", DEVICE_CONFIG, DEVICE_REQUESTS, DEVICE_RATE, dev)
     main_launches["K1"] += serve_faults_phase(None, dev)
+
+    # ------------------------------------ 14-16. the device-trace slice ----
+    area = area_phase(rng, dev, sm_clock_hz)
+    k1_err = max(k1_err, area["k1_err"])
+    k2_err = max(k2_err, area["k2_err"])
+    main_launches["K1"] += area["launches"]["K1"]
+    torch.cuda.empty_cache()
+    replayed = trace_replay_phase(dev)
+    k1_err = max(k1_err, replayed["errs"]["K1"])
+    k2_err = max(k2_err, replayed["errs"]["K2"])
+    main_launches["K1"] += replayed["launches"]["K1"]
+    main_launches["K2"] += replayed["launches"]["K2"]
+    block_trace_phase()
+    disk_cache_phase(rng, dev)
+    torch.cuda.empty_cache()
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 10. kernels line ----
+    # ------------------------------------------------- 17. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")
@@ -1124,13 +1499,15 @@ def main() -> None:
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None, "library_note": NO_LIBRARY,
          "shape": f"multpim N={N_BITS}, {WORDS} words x "
-                  f"{k1_main['shape'][1]} columns"},
+                  f"{k1_main['shape'][1]} columns",
+         "multpim_area": area["k1"]},
         {"name": "K2 crossbar_run (unpacked)",
          "route": "cuda", "source": SOURCE, "replaces": K2_REPLACES,
          "launches": main_launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None, "library_note": NO_LIBRARY,
-         "shape": f"multpim N={N_BITS}, {ROWS} rows x {c} columns"},
+         "shape": f"multpim N={N_BITS}, {ROWS} rows x {c} columns",
+         "multpim_area": area["k2"]},
         {"name": "K3 bitserial_matmul (bit-serial fixed-point matmul)",
          "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": main_launches["K3"], "max_abs_err": k3["max_abs_err"],

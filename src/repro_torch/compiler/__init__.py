@@ -27,11 +27,14 @@ Sits between the hand-written program builders (``core/multpim.py``,
   compiled program (sorted/frozen flags + pass key + content hash);
 * :mod:`.cache` — OpSpec-keyed compile->optimize->verify->pack
   memoization so each spec compiles once per process and the executors
-  receive pre-packed, identity-stable tables.
+  receive pre-packed, identity-stable tables;
+* :mod:`.diskcache` / :mod:`.serialize` — verified entries spill to
+  ``~/.cache/repro/torch`` (the ``torch/`` subdirectory of
+  ``REPRO_CACHE_DIR`` when it is set; ``python -m
+  repro_torch.compiler.diskcache clear`` wipes), so cold processes skip
+  build+optimize+verify entirely.
 
-This is the port's own copy of ``repro.compiler``. The disk cache
-(``diskcache.py``, ``serialize.py``) is not ported yet: the cache here
-is memory-only.
+This is the port's own copy of ``repro.compiler``.
 
 The public device/executable facade over this pipeline is
 :mod:`repro_torch.engine` — new code should compile through an
@@ -43,6 +46,7 @@ from .cache import (CompiledEntry, ProgramCache, cache_stats, clear_cache,
 from .coschedule import (CapacityError, PartitionAllocator, Placement,
                          column_budget_counts, coschedule, relocate)
 from .depgraph import DepGraph
+from .diskcache import cache_dir, clear_disk_cache, disk_stats
 from .liveness import dead_sets, live_segments
 from .macrocycle import (DEFAULT_MACRO_FACTOR, MacroTables,
                          fuse_macrocycles)
@@ -62,4 +66,5 @@ __all__ = [
     "compile_cached", "register_builder", "CompiledEntry", "ProgramCache",
     "cache_stats", "clear_cache",
     "OpSpec", "PIPELINE_VERSION",
+    "cache_dir", "clear_disk_cache", "disk_stats",
 ]

@@ -11,10 +11,11 @@ packed tables, zero rebuild cost). The executors therefore see stable
 table identities, which keeps their device-table memos warm.
 
 Keys are :class:`OpSpec` values — canonicalized flags, so permuted or
-differently-constructed flag dicts land on the same entry. The cache is
-memory-only in the port: the reference package's disk spill
-(``repro.compiler.diskcache``) is not ported yet, so ``disk_hits`` in
-:func:`cache_stats` stays 0.
+differently-constructed flag dicts land on the same entry. Verified
+entries additionally spill to the on-disk cache (:mod:`.diskcache`, the
+``torch/`` subdirectory of ``REPRO_CACHE_DIR``): a cold process that
+finds a spilled artifact skips build, optimize *and* verify (counted in
+:func:`cache_stats` as ``disk_hits``).
 
 Thread-safe; keys are fully value-based so distinct flag/config combos
 coexist.
@@ -46,6 +47,7 @@ __all__ = ["CompiledEntry", "ProgramCache", "compile_cached",
 # report alongside the per-cache hit/miss fields.
 _MET_MEM_HIT = obs.counter("cache.memory_hit")
 _MET_MISS = obs.counter("cache.miss")
+_MET_DISK_HIT = obs.counter("cache.disk_hit")
 _MET_COMPILE = obs.counter("cache.compile")
 _MET_VERIFY = obs.counter("cache.verify")
 _MET_VERIFY_FAIL = obs.counter("cache.verify_fail")
@@ -54,11 +56,13 @@ _MET_VERIFY_MS = obs.histogram("cache.verify_ms")
 
 
 def _default_builders() -> Dict[str, Callable[..., Program]]:
-    # Imported lazily so repro_torch.core never needs repro_torch.compiler at import
-    # time (core modules call into the cache from function bodies only).
+    # Imported lazily so repro_torch.core never needs repro_torch.compiler
+    # at import time (core modules call into the cache from function
+    # bodies only).
     from repro_torch.core.baselines import hajali_multiplier, rime_multiplier
     from repro_torch.core.matvec import multpim_mac
     from repro_torch.core.multpim import multpim_multiplier
+    from repro_torch.core.multpim_area import multpim_area_multiplier
     from repro_torch.core.residue import residue_program
     from repro_torch.core.staging import recomb_program, stage_program
     return {
@@ -66,6 +70,7 @@ def _default_builders() -> Dict[str, Callable[..., Program]]:
         "multpim_mac": multpim_mac,
         "hajali": hajali_multiplier,
         "rime": rime_multiplier,
+        "multpim_area": multpim_area_multiplier,
         "stage": stage_program,
         "recomb": recomb_program,
         "residue": residue_program,
@@ -74,12 +79,21 @@ def _default_builders() -> Dict[str, Callable[..., Program]]:
 
 BUILDERS: Dict[str, Callable[..., Program]] = {}
 
+# Kinds whose builder was registered at runtime. Their artifacts never
+# touch the disk cache: the on-disk key hashes only (OpSpec, pipeline
+# version), not builder identity, so a custom builder's spill would
+# poison stock processes sharing the cache dir (and vice versa).
+_CUSTOM_KINDS: set = set()
+
+
 def register_builder(kind: str, builder: Callable[..., Program]) -> None:
     """Expose a new program generator to :func:`compile_cached`.
 
-    Re-registering an existing kind evicts that kind's cached entries,
-    so the next compile uses the new builder."""
+    Re-registering an existing kind evicts that kind's cached entries
+    (memory *and* disk), so the next compile uses the new builder.
+    Custom kinds are memory-cached only (see ``_CUSTOM_KINDS``)."""
     BUILDERS[kind] = builder
+    _CUSTOM_KINDS.add(kind)
     _GLOBAL.evict_kind(kind)
 
 
@@ -95,6 +109,7 @@ class CompiledEntry:
     packed: PackedProgram         # dense tables for the scan/Pallas path
     stats: OptStats
     verified: Optional[VerifyReport] = None
+    from_disk: bool = False       # loaded pre-verified from the disk cache
 
     @classmethod
     def adhoc(cls, prog: Program) -> "CompiledEntry":
@@ -117,9 +132,11 @@ def _as_spec(spec_or_kind: Union[OpSpec, str], n: Optional[int],
 
 
 class ProgramCache:
-    """Thread-safe, OpSpec-keyed memo of :class:`CompiledEntry` values."""
+    """Thread-safe, OpSpec-keyed memo of :class:`CompiledEntry` values;
+    with ``use_disk`` it loads on a miss from, and spills verified
+    entries to, the disk cache (:mod:`.diskcache`)."""
 
-    def __init__(self):
+    def __init__(self, use_disk: bool = True):
         self._entries: Dict[OpSpec, CompiledEntry] = {}
         self._lock = threading.Lock()
         # Per-key compile/verify serialization (see get_or_compile). A
@@ -130,6 +147,7 @@ class ProgramCache:
         self.misses = 0
         self.disk_hits = 0
         self.compiles = 0             # actual build+optimize events
+        self.use_disk = use_disk
 
     def _key_lock(self, spec: OpSpec) -> threading.Lock:
         with self._lock:
@@ -159,7 +177,7 @@ class ProgramCache:
         # Slow path — compile-miss and/or first verification. Serialized
         # per OpSpec key: concurrent scheduler threads that miss the same
         # key must not each build+verify the program (wasted minutes at
-        # large n) — one thread does the
+        # large n) nor race each other's disk spill — one thread does the
         # work, the rest block here and adopt its entry. Distinct keys
         # still compile fully in parallel.
         with self._key_lock(spec):
@@ -194,6 +212,7 @@ class ProgramCache:
                     raise
                 _MET_VERIFY.inc()
                 _MET_VERIFY_MS.observe((time.perf_counter() - t0) * 1e3)
+                self._spill(spec, ent)
         return ent
 
     # ------------------------------------------------------- internals ----
@@ -201,6 +220,15 @@ class ProgramCache:
         # Runs under the per-key lock, outside the cache-wide lock (it
         # can take a while for large n): same-key callers wait and adopt,
         # different keys compile concurrently.
+        if self.use_disk and spec.kind not in _CUSTOM_KINDS:
+            from .diskcache import load_entry
+            with obs.span("cache.disk_load", kind=spec.kind, n=spec.n):
+                ent = load_entry(spec)
+            if ent is not None:
+                with self._lock:
+                    self.disk_hits += 1
+                _MET_DISK_HIT.inc()
+                return ent
         if spec.kind not in BUILDERS:
             for k, v in _default_builders().items():
                 BUILDERS.setdefault(k, v)
@@ -222,15 +250,25 @@ class ProgramCache:
         return CompiledEntry(key=spec, raw=raw, program=prog,
                              packed=packed, stats=stats)
 
+    def _spill(self, spec: OpSpec, ent: CompiledEntry) -> None:
+        if (self.use_disk and not ent.from_disk
+                and spec.kind not in _CUSTOM_KINDS):
+            from .diskcache import store_entry
+            store_entry(spec, ent)
+
     # -------------------------------------------------------- management ----
     def evict_kind(self, kind: str) -> None:
-        """Drop every cached entry of ``kind``."""
+        """Drop every cached entry of ``kind`` (and, with ``use_disk``,
+        its disk entries)."""
         with self._lock:
             for key in [k for k in self._entries if k.kind == kind]:
                 del self._entries[key]
+        if self.use_disk:
+            from .diskcache import purge_kind
+            purge_kind(kind)
 
     def stats(self) -> Dict[str, int]:
-        """Entry count plus hit/miss/compile counters."""
+        """Entry count plus hit/miss/disk-hit/compile counters."""
         with self._lock:
             return {"entries": len(self._entries),
                     "hits": self.hits, "misses": self.misses,

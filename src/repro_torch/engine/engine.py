@@ -2,7 +2,7 @@
 
 One Engine fronts the whole pipeline: builders -> pass pipeline ->
 differential verify -> packed tables (all via the OpSpec-keyed
-:mod:`repro_torch.compiler.cache`) -> a
+:mod:`repro_torch.compiler.cache`, including its disk spill) -> a
 :class:`~repro_torch.engine.executable.Executable` bound to a
 :class:`~repro_torch.engine.backends.Backend`. High-level ops
 (``multiply``, ``mac``, ``inner_product``, ``matvec``) are built on that
@@ -71,6 +71,7 @@ OP_KINDS: Dict[str, str] = {
     "hajali": "hajali",
     "mac": "multpim_mac",
     "multpim_mac": "multpim_mac",
+    "multpim_area": "multpim_area",
     "stage": "stage",
     "recomb": "recomb",
     "residue": "residue",
@@ -151,8 +152,8 @@ class Engine:
                 verify: bool = True) -> Executable:
         """Compile (or fetch) a named op at width ``n`` -> Executable.
 
-        ``op`` is one of ``multpim | rime | hajali | mac | stage |
-        recomb`` or any kind registered with
+        ``op`` is one of ``multpim | rime | hajali | mac | multpim_area |
+        stage | recomb`` or any kind registered with
         :func:`repro_torch.compiler.register_builder`.
         """
         kind = OP_KINDS.get(op, op)

@@ -50,8 +50,13 @@ class ExecCost:
     ``cycles_per_program`` is the cycles-per-MAC figure. ``row_block``
     reports the backend's explicit row tiling (``None`` = the kernels'
     default). ``pack`` reports the backend's bit-plane packing policy.
-    (The reference's ``energy_proxy`` needs its waterfall module, which
-    is not ported yet.)
+    ``energy_proxy`` is the switching-activity estimate — mean memristor
+    bit flips per crossbar row for one full pass, from
+    :func:`repro_torch.obs.waterfall.switching_activity` — a
+    data-independent proxy that, unlike ``energy_uj``'s every-gate-charged
+    model, sees actual state transitions (a gate whose output cell
+    already holds the computed value switches nothing). A resident chain
+    leaves it ``None``, as the reference does.
     """
 
     cycles: int
@@ -62,6 +67,7 @@ class ExecCost:
     programs: int = 1
     row_block: Optional[int] = None
     pack: bool = False
+    energy_proxy: Optional[float] = None
 
     @property
     def cycles_per_program(self) -> float:
@@ -128,7 +134,11 @@ class Executable:
             latency_us=prog.n_cycles * self.crossbar.cycle_ns / 1e3,
             energy_uj=gates * self.crossbar.energy_pj_per_gate / 1e6,
             row_block=getattr(self.backend, "row_block", None),
-            pack=getattr(self.backend, "pack", False))
+            pack=getattr(self.backend, "pack", False),
+            # Memoized on the shared packed tables, so repeated cost()
+            # calls (and every Executable over the same cache entry)
+            # simulate the switching profile once.
+            energy_proxy=obs.switching_activity(self.packed))
 
     # --------------------------------------------------------- verify ----
     def verify(self) -> "VerifyReport":
@@ -309,7 +319,8 @@ class GroupedExecutable:
 
     # ------------------------------------------------------------ run ----
     def run(self, batches: Sequence[Mapping[str, Union[np.ndarray, list]]],
-            *, backend: Union[None, str, Backend] = None
+            *, backend: Union[None, str, Backend] = None,
+            recorder: Optional[object] = None
             ) -> List[Dict[str, np.ndarray]]:
         """Execute K operand sets in one crossbar pass.
 
@@ -318,8 +329,13 @@ class GroupedExecutable:
         ``(rows, n_bits)`` bit planes (all K share the same row count).
         Returns the K output dicts in order, bit-identical to K
         independent :meth:`Executable.run` calls of the member ops.
-        (The reference's ``recorder`` trace hook comes with the device
-        hierarchy.)
+
+        ``recorder`` is the device-hierarchy trace hook: any object with
+        ``record_pass(gex, batches, results)`` (see
+        :class:`repro_torch.device.TraceRecorder`) gets the pass appended
+        to its command trace — operands and results included, so the
+        trace replays bit-exact. The engine layer stays device-agnostic;
+        it only calls back.
         """
         if len(batches) != self.k:
             raise ValueError(f"expected {self.k} operand sets, "
@@ -358,6 +374,8 @@ class GroupedExecutable:
                             val = from_bits(val)
                         grp[name] = val
                     results.append(grp)
+            if recorder is not None:
+                recorder.record_pass(self, batches, results)
             return results
 
 

@@ -12,13 +12,17 @@ Three pieces, one import surface:
   of ``Engine.stats()``), ``obs.write_metrics(path)`` saves it.
   Always on: recording a counter or latency sample is cheap enough to
   not need a switch.
+* **Waterfall** (:mod:`.waterfall`) — modeled-cycle counter tracks
+  (partition occupancy, gate activity, switching) derived from compiled
+  programs, merged into the same trace file; plus the
+  ``energy_proxy`` switching-activity scalar on ``ExecCost``.
 
-The reference package's waterfall tracks (``repro.obs.waterfall``) and
-the ``energy_proxy`` they feed are not ported yet.
+Logging (:mod:`.logging`) configures the ``repro_torch`` logger subtree
+only.
 
-Import layering: ``repro_torch.obs`` imports nothing else of the
-package — the compiler and engine layers import it, so it sits below
-them.
+Import layering: ``repro_torch.obs`` depends only on
+:mod:`repro_torch.core`, which imports nothing of obs — the compiler,
+engine and pim layers import obs, so it sits below them.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from .logging import get_logger, setup_logging
 from .metrics import (Counter, Gauge, Histogram, Registry,
                       WindowedHistogram, get_registry)
 from .trace import NULL_SPAN, PID_SPANS, Span, Tracer, get_tracer
+from .waterfall import (cycle_occupancy, switching_activity,
+                        switching_profile, waterfall_events)
 
 __all__ = [
     # trace
@@ -38,6 +44,9 @@ __all__ = [
     "counter", "gauge", "histogram", "windowed_histogram", "dump",
     "write_metrics", "reset_metrics", "get_registry", "Registry",
     "Counter", "Gauge", "Histogram", "WindowedHistogram",
+    # waterfall
+    "cycle_occupancy", "switching_profile", "switching_activity",
+    "waterfall_events",
     # logging
     "setup_logging", "get_logger",
 ]

@@ -19,10 +19,11 @@ group compiles once through :meth:`repro_torch.engine.Engine.compile_group`
 are reused by every decode step, zero recompiles), and the plan reports
 per-scope cycles/MAC plus a per-token cycle estimate.
 
-The port's copy of ``repro.pim.planner``. It reads a model config by
-duck typing (``d_model``, ``d_ff``, ``layer_kinds()``, ``moe``, ...: the
-attributes of the reference's ``ModelConfig``), since the model configs
-are not ported yet.
+The port's copy of ``repro.pim.planner``. It reads a
+:class:`repro_torch.configs.ModelConfig` (``d_model``, ``d_ff``,
+``layer_kinds()``, ``moe``, ...) by duck typing, as the reference does.
+It keeps :func:`projection_shapes` here until the port has the model
+zoo's attention module, where the reference keeps it.
 """
 from __future__ import annotations
 
@@ -500,7 +501,7 @@ def plan_serve_slots(engine, n_bits: int = 8, *, op: str = "mac",
 
 def gemms_from_config(cfg, batch_tokens: int = 1) -> List[GemmShape]:
     """Extract the per-step GEMM inventory from a model config
-    (duck-typed, as the reference's ``repro.configs``). Serving-shaped:
+    (:class:`repro_torch.configs.ModelConfig`, duck-typed). Serving-shaped:
     m = batch_tokens."""
     m = batch_tokens
     d = cfg.d_model

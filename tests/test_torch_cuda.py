@@ -2,8 +2,10 @@
 PyTorch versions, the engine's packed/unpacked front door and resident
 chain against exact integer results, the PIM linear layers against
 float64 oracles, and serving (resident through K1, fault-checked,
-unpacked through K2) against the plain-int reference tokens. Every test
-skips without a card; on one,
+unpacked through K2) against the plain-int reference tokens, the
+``multpim_area`` tables, recorded command traces replayed through K1 and
+K2, and a disk-loaded cache entry run through K1. Every test skips
+without a card; on one,
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it runs where JAX is not installed)."""
 import numpy as np
@@ -23,8 +25,8 @@ from _tables import dup_write_table, held_table  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-FAMILIES = ["hajali", "multpim", "multpim_mac", "recomb", "residue", "rime",
-            "stage"]
+FAMILIES = ["hajali", "multpim", "multpim_area", "multpim_mac", "recomb",
+            "residue", "rime", "stage"]
 
 
 @pytest.fixture()
@@ -481,3 +483,100 @@ def test_serve_unpacked_through_k2_on_card(card):
     assert rep.bit_exact and rep.recompiles == 0 and rep.n_requests == 32
     assert crossbar_run.launches - before[1] == rep.passes > 0
     assert crossbar_run_packed.launches == before[0]
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_kernels_on_area_tables(card, n):
+    """K1 (macro 1 and 8) and K2 on the multpim_area tables, bit-identical
+    to their plain versions, and the front door's products exact."""
+    packed = compile_cached("multpim_area", n).packed
+    c = packed.init_mask.shape[1]
+    rng = np.random.default_rng(n)
+    for words in (1, 33, 300):
+        st = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (words, c),
+                                           dtype=np.int64).astype(np.int32))
+        got = crossbar_run_packed(st.to(card), packed)
+        for macro in (1, 8):
+            assert torch.equal(got.cpu(),
+                               crossbar_run_ref_packed(st, packed, macro))
+    for rows in (1, 33, 1000, 4097):
+        _k2_check(card, packed, rows, rows + n)
+    a = rng.integers(0, 1 << n, 100, dtype=np.uint64)
+    b = rng.integers(0, 1 << n, 100, dtype=np.uint64)
+    for spec in ("torch:pack=true", "torch:pack=false"):
+        out = Engine(spec).compile("multpim_area", n).run({"a": a, "b": b})
+        assert [int(v) for v in out["out"]] == [int(x) * int(y)
+                                                for x, y in zip(a, b)]
+
+
+def test_trace_replay_through_k1_and_k2(card):
+    """K1 and K2 equal their plain versions on the fused N = 32 group
+    tables; a trace recorded on the card's default engine holds numpy's
+    exact products and the host interpreter's replay, and replays
+    bit-exact through Engine("torch:pack=true") (one K1 launch an EXEC)
+    and Engine("torch:pack=false") (one K2 launch an EXEC)."""
+    from repro_torch.device import CommandTrace, DeviceConfig, TraceRecorder
+    eng = Engine()
+    rec = TraceRecorder(DeviceConfig.parse("1x1x1x2", crossbar=eng.crossbar))
+    rng = np.random.default_rng(5)
+    rows = 1024
+    zeros = np.zeros(rows, dtype=object)
+    # Two N = 32 MACs (855 of the crossbar's 1,024 columns; a third
+    # would need 1,281) and a heterogeneous pair of multipliers.
+    mac = eng.compile_group([("mac", 32, 1, "w1"), ("mac", 32, 1, "w3")])
+    mul = eng.compile_group([("multpim", 32, 1, "m"), ("rime", 32, 1, "r")])
+    for gex in (mac, mul):
+        c = gex.packed.init_mask.shape[1]
+        st = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (rows // 32, c), dtype=np.int64
+        ).astype(np.int32))
+        for macro in (1, 8):
+            assert torch.equal(
+                crossbar_run_packed(st.to(card), gex.packed, macro=macro).cpu(),
+                crossbar_run_ref_packed(st, gex.packed, macro))
+        bits = torch.from_numpy(rng.integers(0, 2, (rows, c), dtype=np.uint8))
+        assert torch.equal(crossbar_run(bits.to(card), gex.packed).cpu(),
+                           crossbar_run_ref(bits, gex.packed))
+    for _ in range(2):
+        pairs = [(rng.integers(0, 1 << 30, rows),
+                  rng.integers(0, 1 << 30, rows)) for _ in range(2)]
+        out = mac.run([eng.mac_inputs(32, a, b, zeros, zeros)
+                       for a, b in pairs], recorder=rec)
+        for o, (a, b) in zip(out, pairs):
+            s, c = eng.mac_accumulate(32, o)
+            assert [int(x) + int(y) for x, y in zip(s, c)] == \
+                [int(p) * int(q) for p, q in zip(a, b)]
+        ops = [{"a": rng.integers(0, 1 << 32, rows, dtype=np.uint64),
+                "b": rng.integers(0, 1 << 32, rows, dtype=np.uint64)}
+               for _ in range(2)]
+        out = mul.run(ops, recorder=rec)
+        for o, op in zip(out, ops):
+            assert [int(v) for v in o["out"]] == \
+                [int(p) * int(q) for p, q in zip(op["a"], op["b"])]
+    back = CommandTrace.loads(rec.trace.dumps())
+    execs = len(back.by_kind("EXEC"))
+    d2h = len(back.by_kind("D2H"))
+    assert back.verify_replay(Engine("numpy")) == d2h == 8
+    for spec, counter in (("torch:pack=true", crossbar_run_packed),
+                          ("torch:pack=false", crossbar_run)):
+        before = counter.launches
+        assert back.verify_replay(Engine(spec)) == d2h
+        assert counter.launches - before == execs == 4
+
+
+def test_disk_loaded_entry_through_k1(card, tmp_path, monkeypatch):
+    """An entry loaded from the disk cache has the compiled tables, and
+    K1 on it is bit-identical to its plain version."""
+    from repro_torch.compiler import ProgramCache
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    cold = ProgramCache(use_disk=True).get_or_compile("multpim", 32)
+    loaded = ProgramCache(use_disk=True).get_or_compile("multpim", 32)
+    assert loaded.from_disk and not cold.from_disk
+    for name in ("gate_id", "in_cols", "out_col", "init_mask"):
+        assert np.array_equal(getattr(loaded.packed, name),
+                              getattr(cold.packed, name))
+    c = loaded.packed.init_mask.shape[1]
+    st = torch.from_numpy(np.random.default_rng(1).integers(
+        -2 ** 31, 2 ** 31, (300, c), dtype=np.int64).astype(np.int32))
+    assert torch.equal(crossbar_run_packed(st.to(card), loaded.packed).cpu(),
+                       crossbar_run_ref_packed(st, loaded.packed))

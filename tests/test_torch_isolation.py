@@ -37,6 +37,51 @@ def test_no_jax_and_no_reference_package_loaded():
     assert out[1] == "", f"repro_torch loaded {out[1]}"
 
 
+# Functions whose imports run only when they are called: the trace's
+# PROG table and loader, the disk cache's (de)serialization, the cost
+# model over a planned block from the port's configs, and a replay.
+_LAZY_PROBE = r"""
+import dataclasses, os, sys, tempfile
+os.environ["REPRO_CACHE_DIR"] = tempfile.mkdtemp()
+from repro_torch.compiler import ProgramCache
+from repro_torch.compiler.serialize import entry_from_bytes, entry_to_bytes
+from repro_torch.configs import get_config
+from repro_torch.device import (CommandTrace, DeviceConfig, TraceRecorder,
+                                block_trace, charge)
+from repro_torch.engine import Engine
+from repro_torch.pim import plan_block
+eng = Engine("torch:device=cpu")
+ent = ProgramCache().get_or_compile("multpim", 4)
+entry_from_bytes(entry_to_bytes(ent), key=ent.key)
+assert ProgramCache().get_or_compile("multpim", 4).from_disk
+dev = DeviceConfig.parse("1x1x1x1", crossbar=eng.crossbar)
+rec = TraceRecorder(dev)
+eng.compile_group([("multpim", 4)]).run([{"a": [3], "b": [5]}],
+                                        recorder=rec)
+back = CommandTrace.loads(rec.trace.dumps())
+assert back.progs() and back.verify_replay(eng) == 1
+cfg = dataclasses.replace(get_config("gemma2-9b", smoke=True),
+                          pim_linear_mode="pim")
+charge(block_trace(plan_block(cfg, eng, scopes=("head",)), dev))
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print(",".join(leaked))
+"""
+
+
+def test_lazy_imports_load_no_reference_package():
+    """Calling the functions that import inside their bodies (trace
+    loading and replay, disk entries, block traces) loads no JAX and
+    nothing of ``repro`` either."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _LAZY_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.splitlines()
+    assert out == [""], f"repro_torch loaded {out}"
+
+
 def test_default_entry_points_need_cuda():
     """get_engine() and the default backend run on the card; with no
     CUDA they raise instead of running on the CPU."""
