@@ -100,15 +100,35 @@ and raises on any failure. Phases, one line each:
     ``multpim`` N = 32 compiled cold into an empty disk cache and
     loaded by a fresh ``ProgramCache`` from disk with identical tables,
     K1 bit-exact on the loaded entry;
-17. one JSON line describing each kernel;
-18. ``{"ok": true, "device": {...}}`` as the last line.
+17. ``model_parity``: every smoke architecture of
+    ``repro_torch.configs.ARCHS``, then gemma2-9b with
+    ``pim_block_mode="full"`` and deepseek-moe-16b with ``"ffn"``, on the
+    card's default engine against ``Engine("torch:device=cpu")`` on the
+    same parameters (the port's ``Initializer``, seed 0, on the CPU,
+    copied to the card): forward logits within the stated tolerance, and
+    the greedy tokens of a prefill plus 4 decode steps equal;
+18. ``model_consistency``: gemma2-9b at its published width and depth
+    (42 layers, d_model 3584, 16 x 256 query heads, vocab 256,000),
+    float, parameters drawn on the card: ``decode_step`` logits against
+    ``forward``'s at each of 12 positions;
+19. ``model_serve``: ``repro_torch.launch.serve.main`` in model mode,
+    ``--arch gemma2-9b --pim --pim-scope full --batch 4 --prompt-len 32
+    --gen 8 --trace``, twice on the card's default engine: prefill
+    seconds, decode tokens/s, token latency p50/p99, zero recompiles
+    during decode, the K1 launches of the traced ``_profile_pass``, peak
+    memory and the trace's events; tokens in range and equal across the
+    two runs;
+20. one JSON line describing each kernel;
+21. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
-path of phases 5, 6, 8, 10-13, 14's front door and 15's recording and
-replays, and read just after (one K3 launch per ``use_pallas=True``
-call, one K1 or K2 launch per fused pass, resident program pass or
-replayed EXEC); comparison launches of phases 3, 4, 7, 12's timing,
-14, 15's group tables and 16 do not count. The program cache spills to an empty directory
+path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
+replays and each run of 19, and read just after (one K3 launch per
+``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
+program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
+12's timing, 14, 15's group tables and 16 do not count (17 and 18
+launch no kernel: the model path takes the integer products with torch
+matmuls, as the reference takes them in XLA). The program cache spills to an empty directory
 under ``build/`` for the run (``REPRO_CACHE_DIR``), removed at the end. Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
@@ -117,6 +137,7 @@ and the library yardstick are full float32.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -197,6 +218,24 @@ REPLAY_ROWS = 1024
 REPLAY_PASSES = 3
 BLOCK_ARCH = "gemma2-9b"
 CAPACITY_TARGET = 100_000
+# The model slice. model_parity: every smoke architecture, and two with
+# PIM scopes on, card against host; float logits within rtol = atol =
+# MODEL_FLOAT_TOL (float32 on both, summed in other orders), PIM logits
+# within a relative norm of MODEL_PIM_REL (an activation that differs in
+# its last bit can round to another 8-bit level). model_consistency:
+# gemma2-9b at full width and depth, decode against forward within the
+# reference's own prefill/decode tolerance. model_serve: the launcher's
+# model mode at full width and depth, every projection on the PIM path.
+MODEL_ARCH = "gemma2-9b"
+MODEL_PIM_CASES = (("gemma2-9b", "full"), ("deepseek-moe-16b", "ffn"))
+MODEL_DECODE_STEPS = 4
+MODEL_FLOAT_TOL = 1e-4
+MODEL_PIM_REL = 1e-3
+CONSISTENCY_PROMPT = 12
+CONSISTENCY_TOL = 2e-3
+SERVE_BATCH = 4
+SERVE_PROMPT = 32
+SERVE_GEN = 8
 BUILD = Path(__file__).resolve().parent / "build"
 
 
@@ -1059,6 +1098,212 @@ def disk_cache_phase(rng, dev) -> None:
           cold_compile_s=round(cold_s, 4), disk_load_s=round(load_s, 4))
 
 
+def model_inputs(cfg, rng, batch: int, seq: int) -> "tuple[np.ndarray, dict]":
+    """Seeded token ids and the stub frontends' inputs of a family."""
+    tokens = rng.integers(3, cfg.vocab_size, (batch, seq))
+    extra = {}
+    if cfg.family == "vlm":
+        extra["extra_embed"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["enc_frames"] = rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return tokens, extra
+
+
+def model_parity_phase(dev) -> None:
+    """Phase 17: every smoke architecture, then two with PIM scopes on,
+    on the card against the port's CPU run on the same parameters (the
+    port's Initializer, seed 0, on the CPU, copied to the card): forward
+    logits within the stated tolerances, and the greedy tokens of a
+    prefill plus MODEL_DECODE_STEPS decode steps equal."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.engine import Engine
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_map
+    host, card = Engine("torch:device=cpu"), Engine()
+    rng = np.random.default_rng(17)
+    t_phase = time.perf_counter()
+    cases = [(a, None) for a in sorted(ARCHS)] + list(MODEL_PIM_CASES)
+    for arch, scope in cases:
+        cfg = get_config(arch, smoke=True)
+        if scope is not None:
+            cfg = dataclasses.replace(cfg, pim_linear_mode="pim",
+                                      pim_linear_bits=SERVE_BITS,
+                                      pim_block_mode=scope)
+        on_host = build_model(cfg, engine=host)
+        on_card = build_model(cfg, engine=card)
+        params = on_host.init(torch.Generator().manual_seed(0))
+        params_card = tree_map(lambda t: t.to(dev), params)
+        tokens, extra = model_inputs(cfg, rng, 2, 16)
+        want, _ = on_host.forward(params, torch.from_numpy(tokens),
+                                  **{k: torch.from_numpy(v)
+                                     for k, v in extra.items()})
+        got, _ = on_card.forward(params_card,
+                                 torch.from_numpy(tokens).to(dev),
+                                 **{k: torch.from_numpy(v).to(dev)
+                                    for k, v in extra.items()})
+        got = got.cpu()
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"model_parity {arch}: logits not finite or misshaped")
+        err = float((got - want).abs().max())
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        if scope is None:
+            check(torch.allclose(got, want, rtol=MODEL_FLOAT_TOL,
+                                 atol=MODEL_FLOAT_TOL),
+                  f"model_parity {arch}: card logits off by {err}")
+        else:
+            check(rel <= MODEL_PIM_REL, f"model_parity {arch} {scope}: "
+                                        f"relative error {rel}")
+        frames = extra.get("enc_frames")
+        prompts = torch.from_numpy(tokens[:, :8])
+        gen = MODEL_DECODE_STEPS + 1
+        on_h = serve_model(
+            on_host, params, prompts, host, gen=gen, cache_len=16,
+            frames=None if frames is None else torch.from_numpy(frames))
+        on_c = serve_model(
+            on_card, params_card, prompts.to(dev), card, gen=gen,
+            cache_len=16,
+            frames=None if frames is None else torch.from_numpy(frames).to(
+                dev))
+        check(np.array_equal(on_h.tokens, on_c.tokens),
+              f"model_parity {arch}: card tokens {on_c.tokens.tolist()} "
+              f"!= host tokens {on_h.tokens.tolist()}")
+        phase("model_parity", arch=arch, scope=scope or "off",
+              max_abs_err=err, rel_err=rel,
+              tol=(f"rtol=atol={MODEL_FLOAT_TOL}" if scope is None
+                   else f"rel<={MODEL_PIM_REL}"),
+              tokens_equal=True, gen=on_c.tokens.shape[1])
+        del params_card
+    phase("model_parity", cases=len(cases), all_equal=True,
+          seconds=round(time.perf_counter() - t_phase, 1))
+    torch.cuda.empty_cache()
+
+
+def model_consistency_phase(dev) -> None:
+    """Phase 18: MODEL_ARCH at its published width and depth, float
+    (PIM off; in PIM mode the activation scale spans every row of a
+    call, so prefill and decode legitimately differ): token-by-token
+    decode_step logits against forward's at every position of a 1 x
+    CONSISTENCY_PROMPT prompt (RoPE offsets, the ring caches at head
+    size 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH)
+    model = build_model(cfg, engine=Engine())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    s = CONSISTENCY_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(
+        3, cfg.vocab_size, (1, s))).to(dev)
+    t0 = time.perf_counter()
+    full, _ = model.forward(params, tokens)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    states = model.init_decode_state(1, 32)
+    err = 0.0
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, states = model.decode_step(
+            params, tokens[:, t:t + 1],
+            torch.full((1, 1), t, dtype=torch.int32, device=dev), states)
+        check(torch.allclose(logits[:, 0], full[:, t],
+                             rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL),
+              f"model_consistency: decode differs from forward at {t}")
+        err = max(err, float((logits[:, 0] - full[:, t]).abs().max()))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    phase("model_consistency", arch=cfg.name, layers=cfg.n_layers,
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}x{cfg.hd}",
+          kv_heads=cfg.n_kv_heads, vocab=cfg.vocab_size, prompt=s,
+          pim="off", max_abs_err=err,
+          tol=f"rtol=atol={CONSISTENCY_TOL}", init_s=round(init_s, 3),
+          forward_s=round(forward_s, 4),
+          decode_ms_per_token=round(1e3 * decode_s / s, 3),
+          peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+          seconds=round(time.perf_counter() - t_phase, 1))
+    del params, states, full, logits
+    torch.cuda.empty_cache()
+
+
+def model_serve_phase(dev) -> int:
+    """Phase 19: the launcher's model mode on the card's default engine,
+    twice: MODEL_ARCH at full width and depth, every projection on the
+    PIM path, traced (so ``_profile_pass`` launches K1). Checks zero
+    recompiles during decode, K1 launched, tokens in range and the two
+    runs' tokens identical. Returns the K1 launches of both runs."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    from repro_torch.launch import serve as launcher
+    cfg = get_config(MODEL_ARCH)
+    trace = BUILD / "model_serve_trace.json"
+    argv = ["--arch", MODEL_ARCH, "--pim", "--pim-scope", "full",
+            "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+            "--gen", str(SERVE_GEN), "--trace", str(trace)]
+    runs = []
+    k1 = 0
+    t_phase = time.perf_counter()
+    for i in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        crossbar_run_packed.launches = 0
+        crossbar_run.launches = 0
+        t0 = time.perf_counter()
+        try:
+            run = launcher.main(argv)
+        finally:
+            obs.disable()
+        wall = time.perf_counter() - t0
+        launches = crossbar_run_packed.launches
+        check(launches >= 1 and crossbar_run.launches == 0,
+              f"model_serve: K1 launched {launches} times, K2 "
+              f"{crossbar_run.launches}")
+        k1 += launches
+        events = json.loads(trace.read_text())["traceEvents"]
+        spans = {}
+        for e in events:
+            if e.get("ph") == "X":
+                spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+        top = dict(sorted(spans.items(), key=lambda kv: -kv[1])[:6])
+        obs.reset_trace()
+        trace.unlink()
+        check(run.recompiles == 0, f"model_serve: {run.recompiles} "
+                                   f"recompiles during decode")
+        check(run.tokens.shape == (SERVE_BATCH, SERVE_GEN)
+              and bool(((run.tokens >= 0)
+                        & (run.tokens < cfg.vocab_size)).all()),
+              f"model_serve: tokens out of range: {run.tokens.tolist()}")
+        runs.append(run)
+        phase("model_serve", run=i, arch=cfg.name, layers=cfg.n_layers,
+              d_model=cfg.d_model, vocab=cfg.vocab_size, pim_scope="full",
+              batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+              prefill_s=round(run.prefill_s, 4),
+              decode_tok_s_per_seq=round(run.tokens_per_s, 3),
+              decode_tok_s=round(SERVE_BATCH * run.tokens_per_s, 3),
+              token_p50_us=round(run.latency_us(50), 1),
+              token_p99_us=round(run.latency_us(99), 1),
+              recompiles=run.recompiles, k1_launches=launches,
+              peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+              trace_events=len(events), wall_s=round(wall, 3),
+              span_s=json.dumps({k: round(v, 4) for k, v in top.items()}))
+    check(np.array_equal(runs[0].tokens, runs[1].tokens),
+          "model_serve: two identical runs gave different tokens")
+    phase("model_serve", identical_tokens=True,
+          sample=json.dumps(runs[0].tokens[0].tolist()),
+          seconds=round(time.perf_counter() - t_phase, 1))
+    torch.cuda.empty_cache()
+    return k1
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -1484,10 +1729,15 @@ def run_phases() -> None:
     block_trace_phase()
     disk_cache_phase(rng, dev)
     torch.cuda.empty_cache()
+
+    # -------------------------------------------- 17-19. the model slice ----
+    model_parity_phase(dev)
+    model_consistency_phase(dev)
+    main_launches["K1"] += model_serve_phase(dev)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 17. kernels line ----
+    # ------------------------------------------------- 20. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

@@ -1,11 +1,12 @@
-"""Carry compiled tables, packed state and quantized operands across
-packages.
+"""Carry compiled tables, packed state, quantized operands, model
+parameters and decode states across packages.
 
 This system has no trained weights: what crosses between the JAX
 reference package and the port is the compiled program tables, the
-bit-plane packed crossbar state and the quantized operands of the PIM
-linear layers. All cross as plain numpy arrays, so nothing here imports
-the reference package.
+bit-plane packed crossbar state, the quantized operands of the PIM
+linear layers, and the model zoo's (seeded, random) parameter and decode
+state trees. All cross as plain numpy arrays, so nothing here imports
+the reference package or JAX.
 
 * :func:`packed_from_arrays` rebuilds a
   :class:`~repro_torch.core.executor.PackedProgram` from the four dense
@@ -16,6 +17,10 @@ the reference package.
 * :func:`qtensor_from_arrays` builds a
   :class:`~repro_torch.pim.quant.QTensor` from another package's
   quantized ``q`` and ``scale``.
+* :func:`params_from_numpy` / :func:`decode_state_from_numpy` turn a
+  model's parameter or decode-state tree, as numpy leaves (for the
+  reference, ``jax.tree.map(np.asarray, tree)``), into the port's tree
+  of tensors on a device, with the same nesting of dicts and lists.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from repro_torch.core.executor import PackedProgram
 from repro_torch.pim.quant import QTensor
 
 __all__ = ["packed_from_arrays", "words_to_torch", "words_to_numpy",
-           "qtensor_from_arrays"]
+           "qtensor_from_arrays", "params_from_numpy",
+           "decode_state_from_numpy"]
 
 
 def packed_from_arrays(gate_id, in_cols, out_col,
@@ -79,3 +85,25 @@ def qtensor_from_arrays(q, scale, n_bits: int, zero: int) -> QTensor:
     return QTensor(torch.from_numpy(q.astype(np.int32)),
                    torch.from_numpy(np.array(scale, np.float32)),
                    int(n_bits), int(zero))
+
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A model parameter tree with numpy leaves (nested dicts and lists,
+    as the reference keeps it) -> the port's tree of tensors on
+    ``device``, dtypes kept (the reference's float32 parameters stay
+    float32)."""
+    from repro_torch.models.transformer import tree_map
+    # np.array copies: a read-only buffer (a JAX array's view) cannot
+    # back a tensor.
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                    tree)
+
+
+def decode_state_from_numpy(tree, device="cpu"):
+    """A decode-state tree with numpy leaves -> the port's, on
+    ``device``: every cache's ``k``/``v``/``length`` (int32; the
+    reference keeps a cache as the dict of its fields) and every
+    recurrent state as tensors, ``None`` entries (``scan`` without units,
+    ``enc_out`` outside enc-dec) kept."""
+    return params_from_numpy(tree, device)

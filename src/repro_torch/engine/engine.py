@@ -657,12 +657,19 @@ class Engine:
         return self.inner_product(A, X, n, use_compiler=use_compiler,
                                   backend=backend, k=k, resident=resident)
 
+    @property
+    def device(self) -> torch.device:
+        """The torch device this engine's backend runs on (``cpu`` for the
+        host backends): where its linear layers compute, and where a
+        model built on it lives."""
+        return torch.device(getattr(self.backend, "device", "cpu"))
+
     def _linear_device(self, *tensors) -> "list[torch.Tensor]":
         """The layer's operands as tensors on one device, which must be
-        this engine's backend device (``cpu`` for host backends): a CUDA
-        engine never computes on the host, and a host engine never on
-        the card. Host data (numpy, lists) becomes a CPU tensor."""
-        want = torch.device(getattr(self.backend, "device", "cpu"))
+        this engine's backend device (:attr:`device`): a CUDA engine
+        never computes on the host, and a host engine never on the card.
+        Host data (numpy, lists) becomes a CPU tensor."""
+        want = self.device
         out = [t if isinstance(t, torch.Tensor) or t is None
                else torch.as_tensor(t) for t in tensors]
         for t in out:

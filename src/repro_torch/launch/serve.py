@@ -1,4 +1,28 @@
-"""Serving launcher of the port: continuous-batching traffic on the H100.
+"""Serving launcher of the port: model-mode prefill and greedy decode, and
+continuous-batching traffic, on the H100.
+
+Model mode (the default) builds a model zoo architecture (``--arch``,
+default gemma2-9b at its published width; ``--smoke`` for the reduced
+config), draws its parameters from seed 0 on the engine's device, runs a
+batched prefill over seeded prompts and a greedy decode loop
+(:func:`serve_model`), and logs prefill seconds, decode tokens/s and the
+per-token latency percentiles. With ``--pim`` (on by default under
+``--smoke``) the LM head runs as a PIM-mode linear through the port's
+:class:`~repro_torch.engine.Engine`; ``--pim-scope ffn|full`` adds the FFN
+and then the attention q/k/v/o projections, lowered by
+:func:`repro_torch.pim.plan_block` onto co-scheduled crossbar groups that
+compile once: a recompile during decode fails the run. ``--trace`` also
+runs one real crossbar pass of the serve MAC group (``_profile_pass``, K1
+on the card) and merges the groups' modeled-cycle waterfalls into the
+trace. On the card::
+
+  python -m repro_torch.launch.serve --arch gemma2-9b --pim \
+      --pim-scope full --trace /tmp/t.json
+
+On the host, through the kernels' plain PyTorch versions::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --pim-backend torch:device=cpu,pack=true
 
 Traffic mode (``--traffic N``) runs the :mod:`repro_torch.serve`
 continuous-batching scheduler against a seeded Poisson trace of N
@@ -12,50 +36,47 @@ scheduling and the launcher reports both speedups;
 ratio (both also require zero recompiles after warmup and bit-identical
 tokens across schedules). ``--fault-rate P`` injects seeded transient
 bit flips (``faults=flip@P@SEED`` in the backend spec) and
-``--fault-check`` gates the run bit-exact under them.
-
-Without ``--pim-backend`` the launcher runs on the port's default engine,
-packed torch on CUDA, and raises when there is no card. On the card::
+``--fault-check`` gates the run bit-exact under them::
 
   python -m repro_torch.launch.serve --traffic 32 --traffic-rate 500 \
       --fault-rate 1e-5 --fault-check
 
-On the host, through the kernels' plain PyTorch versions::
+Without ``--pim-backend`` either mode runs on the port's default engine,
+packed torch on CUDA, and raises when there is no card.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --traffic 16 \
-      --pim-backend torch:device=cpu,pack=true --traffic-compare
-
-The port's copy of ``repro.launch.serve``'s traffic mode
-(``_run_traffic``, ``_log_report`` and the traffic flags of ``main``).
-Model-mode serving (prefill and greedy decode over a model zoo
-architecture, ``--arch``/``--pim-scope``) is not ported yet: without
-``--traffic`` the launcher exits with a message saying so. The
-reference's deprecated ``--pim-k`` (pin the batch width) is dropped:
-``--traffic-slots`` clamps the slot budget, and K is load-driven.
+The port's copy of ``repro.launch.serve``. ``--model-parallel`` takes only
+1 (the port has no sharded model). The reference's deprecated ``--pim-k``
+(pin the batch width) is dropped: ``--traffic-slots`` clamps the slot
+budget, and K is load-driven.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
-from typing import Optional, Sequence
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from repro_torch import obs
-from repro_torch.device import DeviceConfig
+from repro_torch.configs import get_config
+from repro_torch.device import (CoordAllocator, DeviceConfig, block_trace,
+                                charge)
 from repro_torch.engine import Engine
 from repro_torch.faults import get_fault_model
-from repro_torch.pim import plan_serve_slots
+from repro_torch.models import build_model
+from repro_torch.models.transformer import encode
+from repro_torch.pim import plan_block, plan_serve_slots
 from repro_torch.serve import (DECODE_ELEMS, TrafficConfig, compare_modes,
                                generate, run_load)
+from repro_torch.train import make_serve_step
 
 # No logging side effects at import time: handlers attach only when
 # main() calls obs.setup_logging() (see repro_torch.obs.logging).
 log = obs.get_logger("serve")
-
-MODEL_MODE_MISSING = (
-    "repro_torch.launch.serve runs traffic mode only: pass --traffic N. "
-    "Model-mode serving (prefill and greedy decode over a model, "
-    "--arch/--pim-scope) is not ported to repro_torch yet (ROADMAP "
-    "item A10).")
 
 
 def _log_report(rep) -> None:
@@ -209,14 +230,316 @@ def _run_traffic(args):
     return cont
 
 
+# ------------------------------------------------------------ model mode ----
+@dataclass
+class GreedyRun:
+    """What :func:`serve_model` generated and what it cost.
+
+    ``tokens`` (B, gen) int32 on the host: the prefill's greedy token,
+    then one per decode step. ``stats_before``/``stats_after`` are
+    ``engine.stats()`` around the decode loop (the compile-once gate
+    reads their ``compiles``); ``token_latency_us`` holds one host-clock
+    sample per decode step, each ending in a read of the step's token
+    (which waits for the card)."""
+
+    tokens: np.ndarray
+    prefill_s: float
+    decode_s: float
+    token_latency_us: List[float]
+    stats_before: Dict[str, int]
+    stats_after: Dict[str, int]
+
+    @property
+    def recompiles(self) -> int:
+        """Programs compiled during the decode loop (0 when the PIM
+        schedules compiled once, before it)."""
+        return self.stats_after["compiles"] - self.stats_before["compiles"]
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Decode tokens per second per sequence."""
+        steps = self.tokens.shape[1] - 1
+        return steps / max(self.decode_s, 1e-9)
+
+    def latency_us(self, q: float) -> float:
+        """Decode-step latency percentile ``q`` in [0, 100] (0 without a
+        decode step)."""
+        if not self.token_latency_us:
+            return 0.0
+        return float(np.percentile(self.token_latency_us, q))
+
+
+def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
+                cache_len: int, frames: Optional[torch.Tensor] = None
+                ) -> GreedyRun:
+    """Prefill ``prompts`` (B, S) through ``model`` on ``params``, leaving
+    the KV caches and recurrent states behind, then decode greedily until
+    each sequence has ``gen`` tokens. ``frames`` (B, F, D) feed the
+    enc-dec encoder. ``engine`` is the model's engine; its cache counters
+    are read around the decode loop.
+
+    Prefill is ``model.forward`` with states; decode is
+    :func:`repro_torch.train.make_serve_step`'s step, as in the
+    reference's launcher. Spans ``serve.prefill`` and
+    ``serve.decode_step``; every step's latency also lands in the
+    ``serve.token_latency_us`` histogram.
+    """
+    cfg = model.cfg
+    b, s = prompts.shape
+    states = model.init_decode_state(b, cache_len)
+    if frames is not None:
+        states["enc_out"] = encode(cfg, params, frames, engine=engine)
+    t0 = time.perf_counter()
+    with obs.span("serve.prefill", batch=b, prompt_len=s):
+        logits, states = model.forward(params, prompts, states=states)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out = [tok.cpu().numpy()]         # waits for the card
+    prefill_s = time.perf_counter() - t0
+
+    serve, jit_for = make_serve_step(model)
+    pos0 = torch.zeros((b, 1), dtype=torch.int32, device=prompts.device)
+    step = jit_for(params, states, {"token": tok, "position": pos0})
+    pre = engine.stats()
+    tok_lat = obs.histogram("serve.token_latency_us")
+    lat: List[float] = []
+    t0 = time.perf_counter()
+    for t in range(gen - 1):
+        s0 = time.perf_counter()
+        with obs.span("serve.decode_step", step=t):
+            pos = pos0 + (s + t)
+            tok, states = step(params, states, tok, pos)
+            out.append(tok.cpu().numpy())  # device sync: real step time
+        lat.append((time.perf_counter() - s0) * 1e6)
+        tok_lat.observe(lat[-1])
+    decode_s = time.perf_counter() - t0
+    return GreedyRun(np.concatenate(out, axis=1), prefill_s, decode_s, lat,
+                     pre, engine.stats())
+
+
+def _profile_pass(engine, n_bits: int) -> None:
+    """One real crossbar pass of the serve MAC group, so the exported
+    trace holds the exec.run -> marshal/pack/kernel/unpack breakdown (the
+    decode loop computes the MAC semantics with torch matmuls, not
+    through Executable.run). Only called under --trace, so the untraced
+    serve path pays nothing. On the card's default engine the pass is a
+    K1 launch."""
+    with obs.span("serve.profile_pass", n_bits=n_bits):
+        rows = 8
+        a = np.arange(1, rows + 1, dtype=object)
+        zeros = np.zeros(rows, dtype=object)
+        batch = engine._mac_inputs(n_bits, a, a, zeros, zeros)
+        k = engine.effective_coschedule_k("mac", n_bits)
+        if k >= 2:
+            engine.compile_batch("mac", n_bits, k).run([batch] * k)
+        else:
+            engine.compile("mac", n_bits).run(batch)
+
+
+def _export_waterfalls(engine, plan, n_bits: int) -> None:
+    """Merge modeled-cycle waterfall tracks into the trace: one process
+    row per co-scheduled plan group (fused program occupancy +
+    switching) and one for the LM-head MAC group. Groups placed on a
+    device hierarchy (``--device-config``) carry their coordinate as a
+    counter-track prefix."""
+    pid = 2
+    seen = set()
+    groups = list(plan.groups) if plan is not None else []
+    for g in groups:
+        gex = g.executable
+        if gex is None or id(gex.program) in seen:
+            continue
+        seen.add(id(gex.program))
+        obs.add_events(obs.waterfall_events(
+            gex.program, packed=gex.packed,
+            name=f"{g.scope}: {gex.program.name}", pid=pid,
+            cycle_ns=engine.crossbar.cycle_ns,
+            track=str(g.coord) if g.coord is not None else None))
+        pid += 1
+    k = engine.effective_coschedule_k("mac", n_bits)
+    exe = (engine.compile_batch("mac", n_bits, k) if k >= 2
+           else engine.compile("mac", n_bits))
+    if id(exe.program) not in seen:
+        obs.add_events(obs.waterfall_events(
+            exe.program, packed=exe.packed,
+            name=f"lm_head MAC: {exe.program.name}", pid=pid,
+            cycle_ns=engine.crossbar.cycle_ns))
+
+
+def _log_pim(args, cfg, engine, plan, device, run: GreedyRun) -> None:
+    """The compile-once gate and the PIM accounting lines."""
+    post = run.stats_after
+    log.info("engine cache: hits=%d misses=%d disk_hits=%d entries=%d "
+             "| recompiles during decode=%d",
+             post["hits"], post["misses"], post["disk_hits"],
+             post["entries"], run.recompiles)
+    # hits >= 1 needs at least one decode step (each step's PIM linears
+    # fetch the MAC group from the cache); --gen 1 runs no decode.
+    if run.recompiles != 0 or (args.gen > 1 and post["hits"] < 1):
+        raise SystemExit(
+            f"PIM serve path violated compile-once: hits={post['hits']}"
+            f" recompiles={run.recompiles}")
+    log.info("PIM LM head: %d-bit MultPIM-MAC via the engine "
+             "(backend=%s), compile-once verified",
+             cfg.pim_linear_bits, engine.backend.name)
+    # The co-scheduled K-MAC group the decode loop is accounted at: one
+    # fused crossbar pass serves K MACs (disjoint partition ranges). A
+    # MAC too wide to co-schedule (capacity < 2) stays on the plain path.
+    k = engine.effective_coschedule_k("mac", cfg.pim_linear_bits)
+    if k >= 2:
+        cost = engine.compile_batch("mac", cfg.pim_linear_bits, k).cost()
+        log.info("PIM LM head co-schedule: K=%d MACs/pass, "
+                 "%d cycles/pass -> %.1f cycles/MAC (sequential: %d), "
+                 "up to %.0fx fewer crossbar passes per inner product",
+                 cost.programs, cost.cycles, cost.cycles_per_program,
+                 cost.cycles, float(cost.programs))
+    elif engine.coschedule_k < 2:
+        log.info("PIM LM head co-schedule: off (requested K=%d; "
+                 "sequential passes)", engine.coschedule_k)
+    else:
+        log.info("PIM LM head co-schedule: off (MAC width %d fills "
+                 "the crossbar; sequential passes)", cfg.pim_linear_bits)
+    log.info("PIM scope=%s: %d co-scheduled group(s) over scopes %s",
+             args.pim_scope, len(plan.groups), list(plan.scopes))
+    for scope, row in plan.scope_metrics().items():
+        log.info("PIM scope [%s]: %s on %d crossbar(s) | chains=%s "
+                 "-> %d MACs/pass @ %d cyc/pass = %.1f cycles/MAC | "
+                 "%d passes/token, %s cycles/token (row util %.0f%%)",
+                 scope, ",".join(row["linears"]), row["crossbars"],
+                 row["chains"], row["macs_per_pass"], row["pass_cycles"],
+                 row["cycles_per_mac"], row["passes_per_token"],
+                 f"{row['cycles_per_token']:,}",
+                 100 * row["row_utilization"])
+    if plan.groups:
+        us = plan.cycles_per_token * engine.crossbar.cycle_ns / 1e3
+        log.info("PIM block plan: %s cycles/token end-to-end "
+                 "(%.1f us @ %.0f ns/cycle), weight-stationary "
+                 "layouts reused across all %d decode steps",
+                 f"{plan.cycles_per_token:,}", us,
+                 engine.crossbar.cycle_ns, args.gen - 1)
+        obs.gauge("serve.cycles_per_token").set(plan.cycles_per_token)
+    if device is not None and plan.groups:
+        rep = charge(block_trace(plan, device))
+        for line in rep.summary().splitlines():
+            log.info("%s", line)
+        obs.gauge("serve.device.latency_us").set(rep.latency_us)
+        obs.gauge("serve.device.tokens_per_sec").set(rep.tokens_per_sec)
+
+
+def _run_model(args) -> GreedyRun:
+    """Model mode: build ``--arch``, plan its PIM scopes, prefill and
+    decode greedily, gate compile-once. Returns the run."""
+    pim = args.smoke if args.pim is None else args.pim
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if pim:
+        block_mode = {"head": "none", "ffn": "ffn",
+                      "full": "full"}[args.pim_scope]
+        cfg = dataclasses.replace(cfg, pim_linear_mode="pim",
+                                  pim_linear_bits=args.pim_bits,
+                                  pim_block_mode=block_mode)
+    # No --pim-backend: packed torch on CUDA (raises without a card).
+    engine = Engine(args.pim_backend)
+    model = build_model(cfg, engine=engine)
+    log.info("model %s on %s (engine backend %s): %d layers, d_model %d, "
+             "vocab %d, PIM scopes %s", cfg.name, model.device,
+             engine.backend, cfg.n_layers, cfg.d_model, cfg.vocab_size,
+             list(cfg.pim_scopes()))
+    params = model.init(0)
+
+    # Full-block serving plan: lower every enabled scope's linears onto
+    # co-scheduled crossbar groups before prefill and decode, so the
+    # fused schedules compile (and verify) once here; every decode step
+    # reuses them through the engine's cache (the gate below enforces it).
+    plan = None
+    device = None
+    if pim:
+        placer = None
+        if args.device_config is not None:
+            device = DeviceConfig.parse(args.device_config,
+                                        crossbar=engine.crossbar)
+            placer = CoordAllocator(device).place
+            log.info("device hierarchy: %s (%d crossbars, %d banks)",
+                     device, device.n_crossbars, device.n_banks)
+        # With a real device budget, degrade gracefully on capacity
+        # exhaustion: shed the groups that do not fit, and say which.
+        plan = plan_block(cfg, engine, placer=placer,
+                          on_capacity="shed" if device is not None
+                          else "raise")
+        if plan.shed:
+            log.warning("device %s too small for scope plan: shed %d "
+                        "group(s): %s (served scopes: %s)",
+                        device, len(plan.shed), ", ".join(plan.shed),
+                        list(plan.scopes))
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (args.batch, args.prompt_len))).to(model.device)
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+        ).to(model.device)
+    run = serve_model(model, params, prompts, engine, gen=args.gen,
+                      cache_len=args.cache_len, frames=frames)
+    log.info("prefill %d x %d: %.2fs", args.batch, args.prompt_len,
+             run.prefill_s)
+    log.info("generated %d x %d tokens in %.2fs (%.1f tok/s/seq)",
+             args.batch, args.gen, run.decode_s, run.tokens_per_s)
+    if args.gen > 1:
+        log.info("decode latency/token: p50=%.1fus p90=%.1fus p99=%.1fus",
+                 run.latency_us(50), run.latency_us(90), run.latency_us(99))
+    post = run.stats_after
+    obs.gauge("serve.tokens_per_sec").set(run.tokens_per_s)
+    obs.gauge("serve.cache_hits").set(post["hits"])
+    obs.gauge("serve.cache_misses").set(post["misses"])
+    obs.gauge("serve.engine_runs").set(post["runs"])
+    log.info("sample: %s", run.tokens[0][:16].tolist())
+    if pim:
+        _log_pim(args, cfg, engine, plan, device, run)
+
+    if args.trace:
+        if pim:
+            _profile_pass(engine, cfg.pim_linear_bits)
+            _export_waterfalls(engine, plan, cfg.pim_linear_bits)
+        n_ev = obs.export_trace(args.trace)
+        log.info("trace: %d events -> %s", n_ev, args.trace)
+    if args.metrics:
+        obs.write_metrics(args.metrics)
+        log.info("metrics snapshot -> %s", args.metrics)
+    return run
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse the traffic flags (``argv``, default ``sys.argv[1:]``) and
-    run the traffic launcher; exits nonzero when a gate fails. Returns the
-    continuous run's :class:`~repro_torch.serve.LoadReport`."""
+    """Parse the flags (``argv``, default ``sys.argv[1:]``) and serve:
+    model mode, or traffic mode with ``--traffic``; exits nonzero when a
+    gate fails. Returns model mode's :class:`GreedyRun` (the tokens and
+    the engine's cache counters) or the continuous traffic run's
+    :class:`~repro_torch.serve.LoadReport`."""
     ap = argparse.ArgumentParser(
-        description="Continuous-batching traffic launcher on the port's "
-                    "engine (on the card unless --pim-backend says "
-                    "otherwise).")
+        description="Serving launcher on the port's engine (on the card "
+                    "unless --pim-backend says otherwise): model-mode "
+                    "prefill and greedy decode, or continuous-batching "
+                    "traffic with --traffic.")
+    ap.add_argument("--arch", default="gemma2-9b",
+                    help="architecture name (repro_torch.configs registry)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-parallel width; only 1 (the port has no "
+                         "sharded model)")
+    ap.add_argument("--pim", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="run the LM head as a PIM-mode linear through "
+                         "the engine (default: on under --smoke)")
+    ap.add_argument("--pim-scope", choices=["head", "ffn", "full"],
+                    default="head",
+                    help="how much of each block the PIM engine serves: "
+                         "head = LM head only; ffn = + FFN projections "
+                         "(incl. MoE experts); full = + attention "
+                         "q/k/v/o — all via co-scheduled crossbar groups")
     ap.add_argument("--pim-bits", type=int, default=8)
     ap.add_argument("--pim-backend", default=None,
                     help="execution backend spec for the engine, e.g. "
@@ -227,8 +550,11 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device-config", default=None, metavar="CxGxBxX",
                     help="model a PIM device hierarchy "
                          "(repro_torch.device): channels x bank-groups x "
-                         "banks x crossbars, e.g. '2x2x4x4'; the slot "
-                         "budget scales with the crossbar count")
+                         "banks x crossbars, e.g. '2x2x4x4'. Model mode "
+                         "places the plan groups onto coordinates (shedding "
+                         "what does not fit) and logs the charged cost; "
+                         "traffic mode scales the slot budget with the "
+                         "crossbar count")
     ap.add_argument("--traffic", type=int, default=None, metavar="N",
                     help="continuous-batching load mode: serve N "
                          "synthetic requests (seeded Poisson arrivals) "
@@ -287,17 +613,23 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="enable span tracing and write a Chrome "
                          "trace-event file (chrome://tracing or "
-                         "ui.perfetto.dev)")
+                         "ui.perfetto.dev); in model mode with PIM also "
+                         "one real crossbar pass of the MAC group and the "
+                         "groups' crossbar-waterfall counter tracks")
     ap.add_argument("--metrics", default=None, metavar="OUT.json",
                     help="write the obs metrics snapshot (counters, "
                          "gauges, latency histograms) as JSON")
     args = ap.parse_args(argv)
-    if args.traffic is None:
-        raise SystemExit(MODEL_MODE_MISSING)
+    if args.model_parallel != 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: the "
+                         f"port serves an unsharded model on one card; "
+                         f"only --model-parallel 1 is supported")
     obs.setup_logging()
     if args.trace:
         obs.enable()
-    return _run_traffic(args)
+    if args.traffic is not None:
+        return _run_traffic(args)
+    return _run_model(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,513 @@
+"""Transformer-family blocks: init + apply for each layer kind.
+
+The port's copy of ``repro.models.blocks``, in plain torch. Every block
+is a pair of functions:
+
+* ``init_<kind>(cfg, ini) -> params`` (dict tree)
+* ``apply_<kind>(cfg, params, x, *, pos, state, enc_out, mode, engine)
+  -> (y, new_state)``
+
+``mode`` is ``"full"`` (prefill over a whole sequence), ``"encode"``
+(non-causal encoder) or ``"decode"`` (one token, stateful). ``state`` is
+kind-specific:
+
+* attention ('g'/'l'): ``{"self": {"k", "v", "length"}}``, the fields of
+  :class:`repro_torch.models.attention.KVCache`
+* RG-LRU ('r', hybrid): {"h": (B, D), "conv": (B, 3, D)}
+* RWKV-6 ('r', rwkv): {"wkv": (B, H, dh, dh), "tshift"/"cshift": (B, D)}
+* MoE ('m'/'d'): same as attention (the FFN is stateless).
+
+``engine`` is the :class:`repro_torch.engine.Engine` that the projections
+of the PIM scopes (``cfg.pim_scopes()``) run through; projections outside
+them are plain ``@``. MoE dispatch is dropless sort -> grouped GEMM ->
+scatter-add, so prefill and decode agree.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.pim.quant import ragged_dot
+
+from .attention import KVCache, attend, decode_attend
+from .layers import Initializer, rms_norm, rope
+
+__all__ = ["init_block", "apply_block", "init_state", "pim_proj"]
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def _engine(engine):
+    if engine is None:
+        from repro_torch.engine import get_engine   # the card's engine
+        engine = get_engine()
+    return engine
+
+
+# ------------------------------------------------------ PIM offload ----
+def pim_proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, *,
+             scope: str, engine=None) -> torch.Tensor:
+    """One block linear, optionally offloaded to the PIM engine.
+
+    ``scope`` is ``"attn"`` (q/k/v/o projections) or ``"ffn"`` (both
+    FFN projections); whether it routes through ``engine`` (default
+    :func:`repro_torch.engine.get_engine`, on the card) is governed by
+    ``cfg.pim_block_mode`` (:meth:`ModelConfig.pim_scopes`). The engine
+    path quantizes to ``cfg.pim_linear_bits``, takes the integer matmul
+    bit-identical to the in-memory MultPIM-MAC, and compiles the
+    co-scheduled MAC group into the shared program cache once: every
+    projection of every layer reuses the one verified schedule.
+    """
+    if scope not in cfg.pim_scopes():
+        return x @ w
+    mode = "pim" if cfg.pim_linear_mode == "off" else cfg.pim_linear_mode
+    return _engine(engine).linear(x, w, n_bits=cfg.pim_linear_bits,
+                                  mode=mode)
+
+
+def _pim_ragged(cfg: ModelConfig, xs: torch.Tensor, we: torch.Tensor,
+                counts: torch.Tensor, *, engine=None) -> torch.Tensor:
+    """MoE per-expert grouped GEMM, PIM-offloaded under the ``"ffn"``
+    scope (the expert FFNs are the block's FFN projections)."""
+    if "ffn" not in cfg.pim_scopes():
+        return ragged_dot(xs, we, counts)
+    mode = "pim" if cfg.pim_linear_mode == "off" else cfg.pim_linear_mode
+    return _engine(engine).ragged_linear(xs, we, counts,
+                                         n_bits=cfg.pim_linear_bits,
+                                         mode=mode)
+
+
+# ============================================================ attention ====
+def _init_attn_core(cfg: ModelConfig, ini: Initializer) -> Dict[str, Any]:
+    d = cfg.d_model
+    p = {
+        "wq": ini(d, cfg.q_dim, scale=d ** -0.5),
+        "wk": ini(d, cfg.kv_dim, scale=d ** -0.5),
+        "wv": ini(d, cfg.kv_dim, scale=d ** -0.5),
+        "wo": ini(cfg.q_dim, d, scale=(cfg.q_dim * 2 * cfg.n_layers) ** -0.5),
+    }
+    if cfg.qk_norm:
+        p["qn"] = ini.zeros(cfg.hd)
+        p["kn"] = ini.zeros(cfg.hd)
+    return p
+
+
+def _init_mlp(cfg: ModelConfig, ini: Initializer, d_ff: int) -> Dict[str, Any]:
+    d = cfg.d_model
+    p = {"w1": ini(d, d_ff, scale=d ** -0.5),
+         "w2": ini(d_ff, d, scale=(d_ff * 2 * cfg.n_layers) ** -0.5)}
+    if cfg.mlp_type == "swiglu":
+        p["w3"] = ini(d, d_ff, scale=d ** -0.5)
+    return p
+
+
+def _apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
+               engine=None):
+    # Same math as layers.swiglu/gelu_mlp, with each projection routed
+    # through the PIM hook (plain matmul when the scope is off).
+    h1 = pim_proj(cfg, x, p["w1"], scope="ffn", engine=engine)
+    if "w3" in p:
+        gated = F.silu(h1) * pim_proj(cfg, x, p["w3"], scope="ffn",
+                                      engine=engine)
+        return pim_proj(cfg, gated, p["w2"], scope="ffn", engine=engine)
+    return pim_proj(cfg, _gelu(h1), p["w2"], scope="ffn", engine=engine)
+
+
+def init_attn_block(cfg: ModelConfig, ini: Initializer, kind: str,
+                    d_ff: Optional[int] = None) -> Dict[str, Any]:
+    """Parameters of one attention block (+ cross-attention for enc-dec)."""
+    p = {"ln1": ini.zeros(cfg.d_model), "ln2": ini.zeros(cfg.d_model)}
+    p.update(_init_attn_core(cfg, ini))
+    p["mlp"] = _init_mlp(cfg, ini, d_ff or cfg.d_ff)
+    if cfg.family == "encdec":
+        d = cfg.d_model
+        p["lnx"] = ini.zeros(d)
+        p["xq"] = ini(d, cfg.q_dim, scale=d ** -0.5)
+        p["xk"] = ini(d, cfg.kv_dim, scale=d ** -0.5)
+        p["xv"] = ini(d, cfg.kv_dim, scale=d ** -0.5)
+        p["xo"] = ini(cfg.q_dim, d, scale=(cfg.q_dim * 2 * cfg.n_layers) ** -0.5)
+    return p
+
+
+def _qkv(cfg: ModelConfig, p, xn, pos, engine):
+    b, s, _ = xn.shape
+    q = pim_proj(cfg, xn, p["wq"], scope="attn", engine=engine).reshape(
+        b, s, cfg.n_heads, cfg.hd)
+    k = pim_proj(cfg, xn, p["wk"], scope="attn", engine=engine).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
+    v = pim_proj(cfg, xn, p["wv"], scope="attn", engine=engine).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k = rms_norm(k, p["kn"], cfg.norm_eps)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _pad_seq(x, n):
+    """Pad (B, S, H, D) with ``n`` zero rows at the end of S."""
+    return F.pad(x, (0, 0, 0, 0, 0, n))
+
+
+def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
+                     kind: str, engine=None):
+    """One attention block: (self-attention [+ cross-attention] + MLP)."""
+    b, s, d = x.shape
+    window = cfg.window if kind == "l" else None
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, xn, pos, engine)
+    new_state = state
+    if mode in ("full", "encode"):
+        o = attend(q, k, v, causal=(mode != "encode"), window=window,
+                   cap=cfg.softcap_attn)
+        if state is not None:     # prefill: leave the KV behind
+            t = state["self"]["k"].shape[1]
+            kc, vc = k, v
+            if s < t:
+                kc, vc = _pad_seq(k, t - s), _pad_seq(v, t - s)
+            elif s > t:            # windowed: keep the most recent slice,
+                # rotated so token j sits at ring slot j % t.
+                kc = torch.roll(k[:, -t:], s % t, dims=1)
+                vc = torch.roll(v[:, -t:], s % t, dims=1)
+            new_state = dict(state)
+            new_state["self"] = {
+                "k": kc.to(state["self"]["k"].dtype),
+                "v": vc.to(state["self"]["v"].dtype),
+                "length": torch.tensor(s, dtype=torch.int32,
+                                       device=x.device)}
+    else:
+        o, cache = decode_attend(q, KVCache(**state["self"]), k, v,
+                                 window=window, cap=cfg.softcap_attn)
+        new_state = dict(state)
+        new_state["self"] = cache._asdict()
+    x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], scope="attn",
+                     engine=engine)
+
+    if cfg.family == "encdec" and enc_out is not None:
+        xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
+        qx = pim_proj(cfg, xn2, p["xq"], scope="attn", engine=engine
+                      ).reshape(b, s, cfg.n_heads, cfg.hd)
+        kx = pim_proj(cfg, enc_out, p["xk"], scope="attn", engine=engine
+                      ).reshape(b, enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
+        vx = pim_proj(cfg, enc_out, p["xv"], scope="attn", engine=engine
+                      ).reshape(b, enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
+        ox = attend(qx, kx, vx, causal=False)
+        x = x + pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"],
+                         scope="attn", engine=engine)
+
+    xn3 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine)
+    return x, new_state
+
+
+# ================================================================= MoE ====
+def init_moe_block(cfg: ModelConfig, ini: Initializer) -> Dict[str, Any]:
+    """Parameters of one MoE block (attention + routed/shared experts)."""
+    e = cfg.moe
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"ln1": ini.zeros(d), "ln2": ini.zeros(d)}
+    p.update(_init_attn_core(cfg, ini))
+    p["router"] = ini(d, e.n_experts, scale=d ** -0.5)
+    p["we1"] = ini(e.n_experts, d, f, scale=d ** -0.5)
+    p["we3"] = ini(e.n_experts, d, f, scale=d ** -0.5)
+    p["we2"] = ini(e.n_experts, f, d, scale=(f * 2 * cfg.n_layers) ** -0.5)
+    if e.n_shared:
+        p["shared"] = _init_mlp(cfg, ini, f * e.n_shared)
+    return p
+
+
+MOE_CHUNK = 32768   # cap tokens per dispatch so the sorted dispatch
+# activations stay bounded for 1M-token prefills.
+
+
+def moe_ffn(cfg: ModelConfig, p, x3: torch.Tensor, *,
+            engine=None) -> torch.Tensor:
+    """Dropless top-k expert FFN over (B, S, D); long sequences are
+    dispatched in chunks along S, so the sorted (T*k, D) dispatch
+    activations stay O(chunk)."""
+    b, s, d = x3.shape
+    sc = max(1, MOE_CHUNK // max(1, b))
+    if s > sc and s % sc == 0:
+        ys = [_moe_ffn_chunk(cfg, p, x3[:, c:c + sc].reshape(b * sc, d),
+                             engine=engine).reshape(b, sc, d)
+              for c in range(0, s, sc)]
+        return torch.cat(ys, dim=1)
+    return _moe_ffn_chunk(cfg, p, x3.reshape(b * s, d),
+                          engine=engine).reshape(b, s, d)
+
+
+def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
+                   engine=None) -> torch.Tensor:
+    """Dropless dispatch: sort token-expert pairs by expert (stable), then
+    grouped GEMMs over the ragged per-expert segments, then a scatter-add
+    of the gated outputs back to their tokens.
+
+    Every routed pair is computed (no capacity bound), so a token's
+    output never depends on the other tokens of the dispatch and
+    prefill equals token-by-token decode. The router is a plain ``@``,
+    as in the reference.
+    """
+    e = cfg.moe
+    t, d = x2.shape
+    logits = x2 @ p["router"]
+    gate, idx = torch.topk(logits, e.top_k, dim=-1)        # (T, k)
+    gate = torch.softmax(gate.to(torch.float32), dim=-1).to(x2.dtype)
+
+    flat_e = idx.reshape(-1)                               # (T*k,)
+    flat_t = torch.arange(t, device=x2.device).repeat_interleave(e.top_k)
+    order = torch.argsort(flat_e, stable=True)
+    st, sg = flat_t[order], gate.reshape(-1)[order]
+    counts = torch.bincount(flat_e, minlength=e.n_experts).to(torch.int32)
+
+    xs = x2[st]                                            # (T*k, d)
+    h = _pim_ragged(cfg, xs, p["we1"], counts, engine=engine)
+    h3 = _pim_ragged(cfg, xs, p["we3"], counts, engine=engine)
+    y = _pim_ragged(cfg, F.silu(h) * h3, p["we2"], counts, engine=engine)
+    out = torch.zeros_like(x2).index_add_(0, st, y * sg[:, None])
+    if e.n_shared:
+        out = out + _apply_mlp(cfg, p["shared"], x2, engine=engine)
+    return out
+
+
+def apply_moe_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
+                    engine=None):
+    """One MoE block: self-attention (``wo`` plain) + the expert FFN."""
+    b, s, d = x.shape
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, xn, pos, engine)
+    new_state = state
+    if mode == "full":
+        o = attend(q, k, v, causal=True, cap=cfg.softcap_attn)
+    else:
+        o, cache = decode_attend(q, KVCache(**state["self"]), k, v,
+                                 cap=cfg.softcap_attn)
+        new_state = dict(state)
+        new_state["self"] = cache._asdict()
+    x = x + (o.reshape(b, s, cfg.q_dim) @ p["wo"])
+    xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + moe_ffn(cfg, p, xn2, engine=engine), new_state
+
+
+# ============================================================== RG-LRU ====
+def init_rglru_block(cfg: ModelConfig, ini: Initializer) -> Dict[str, Any]:
+    """Parameters of one RG-LRU (recurrentgemma) block."""
+    d = cfg.d_model
+    p = {
+        "ln1": ini.zeros(d), "ln2": ini.zeros(d),
+        "wx": ini(d, d, scale=d ** -0.5),     # recurrence branch in-proj
+        "wg": ini(d, d, scale=d ** -0.5),     # gelu gate branch
+        "wo": ini(d, d, scale=(d * 2 * cfg.n_layers) ** -0.5),
+        "conv": ini(4, d, scale=0.1),         # causal depthwise conv
+        "wa": ini(d, d, scale=d ** -0.5),     # recurrence gate r_t
+        "wi": ini(d, d, scale=d ** -0.5),     # input gate i_t
+        "lam": ini.zeros(d) + 2.0,            # sigmoid(lam)^c decay base
+    }
+    p["mlp"] = _init_mlp(cfg, ini, cfg.d_ff)
+    return p
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t over axis 1, one step at a time.
+
+    The reference takes this as a log-depth ``associative_scan``; the
+    sums associate differently, so the two agree to float32 rounding
+    (about 1e-6 relative), not bit for bit.
+    """
+    h = h0
+    hs = []
+    for i in range(a.shape[1]):
+        h = a[:, i] * h + b[:, i]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def apply_rglru_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
+                      engine=None):
+    """One RG-LRU block: gated linear recurrence + MLP."""
+    b, s, d = x.shape
+    c_exp = 8.0
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    u = xn @ p["wx"]
+    g = _gelu(xn @ p["wg"])
+    if mode == "full":
+        conv_in = F.pad(u, (0, 0, 3, 0))
+        uc = sum(conv_in[:, i:i + s] * p["conv"][i] for i in range(4))
+    else:
+        hist = torch.cat([state["conv"], u], dim=1)         # (B, 4, D)
+        uc = torch.sum(hist * p["conv"], dim=1, keepdim=True)
+    r = torch.sigmoid(xn @ p["wa"])
+    i = torch.sigmoid(xn @ p["wi"])
+    log_a = c_exp * r * F.logsigmoid(p["lam"])               # < 0
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2 * log_a), 1e-6)
+                       ) * (i * uc)
+    h0 = (state["h"] if state is not None
+          else torch.zeros((b, d), dtype=x.dtype, device=x.device))
+    new_state = state
+    if mode == "full":
+        h = _rglru_scan(a, gated, h0)
+        if state is not None:
+            new_state = {"h": h[:, -1], "conv": conv_in[:, s:s + 3]
+                         if s >= 3 else F.pad(u, (0, 0, 3 - s, 0))}
+    else:
+        h = (a * h0[:, None] + gated)
+        new_state = {"h": h[:, -1],
+                     "conv": torch.cat([state["conv"][:, 1:], u], dim=1)}
+    y = (h * g) @ p["wo"]
+    x = x + y
+    xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _apply_mlp(cfg, p["mlp"], xn2, engine=engine), new_state
+
+
+# ============================================================== RWKV-6 ====
+def init_rwkv_block(cfg: ModelConfig, ini: Initializer) -> Dict[str, Any]:
+    """Parameters of one RWKV-6 block (time mix + channel mix)."""
+    d = cfg.d_model
+    lora = max(32, d // 64)
+    p = {
+        "ln1": ini.zeros(d), "ln2": ini.zeros(d),
+        "mix": ini(5, d, scale=0.5),          # base lerp for r,k,v,w,g
+        "wr": ini(d, d, scale=d ** -0.5),
+        "wk": ini(d, d, scale=d ** -0.5),
+        "wv": ini(d, d, scale=d ** -0.5),
+        "wg": ini(d, d, scale=d ** -0.5),
+        "wo": ini(d, d, scale=(d * 2 * cfg.n_layers) ** -0.5),
+        "w0": ini.zeros(d) - 6.0,             # decay bias (slow decay)
+        "wa": ini(d, lora, scale=d ** -0.5),  # data-dependent decay LoRA
+        "wb": ini(lora, d, scale=lora ** -0.5),
+        "u": ini(d, scale=0.5),               # bonus
+        "gn": ini.zeros(d),                   # group-norm scale
+        # channel mix
+        "cmix": ini(2, d, scale=0.5),
+        "ck": ini(d, cfg.d_ff, scale=d ** -0.5),
+        "cv": ini(cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
+        "cr": ini(d, d, scale=d ** -0.5),
+    }
+    return p
+
+
+def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv):
+    """xn (B,S,D); xprev (B,S,D) = token-shifted xn; returns (y, last wkv).
+    The reference's ``lax.scan`` over S is a loop over S."""
+    b, s, d = xn.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    mix = torch.sigmoid(p["mix"])
+
+    def lerp(i):
+        return xn * mix[i] + xprev * (1 - mix[i])
+    r = (lerp(0) @ p["wr"]).reshape(b, s, nh, hd)
+    k = (lerp(1) @ p["wk"]).reshape(b, s, nh, hd)
+    v = (lerp(2) @ p["wv"]).reshape(b, s, nh, hd)
+    wdd = p["w0"] + torch.tanh(lerp(3) @ p["wa"]) @ p["wb"]
+    w = torch.exp(-torch.exp(wdd)).reshape(b, s, nh, hd)   # in (0,1)
+    g = F.silu(lerp(4) @ p["wg"])
+    u = p["u"].reshape(nh, hd)
+
+    S = state_wkv
+    ys = []
+    for t in range(s):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = torch.einsum("bhi,bhj->bhij", k_t, v_t)
+        ys.append(torch.einsum("bhi,bhij->bhj", r_t,
+                               S + u[None, :, :, None] * kv))
+        S = w_t[..., None] * S + kv
+    y = torch.stack(ys, dim=1).reshape(b, s, d)
+    y = rms_norm(y, p["gn"], cfg.norm_eps)                # group-norm proxy
+    return (y * g) @ p["wo"], S
+
+
+def apply_rwkv_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
+                     engine=None):
+    """One RWKV-6 block: time mix + channel mix, with token shift."""
+    b, s, d = x.shape
+    if state is None:
+        state = init_state(cfg, "r", b, 0, x.dtype, device=x.device)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode == "full":
+        xprev = torch.cat([state["tshift"][:, None], xn[:, :-1]], dim=1)
+    else:
+        xprev = state["tshift"][:, None]
+    y, S_last = _rwkv_time_mix(cfg, p, xn, xprev, state["wkv"])
+    x = x + y
+    xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if mode == "full":
+        xprev2 = torch.cat([state["cshift"][:, None], xn2[:, :-1]], dim=1)
+    else:
+        xprev2 = state["cshift"][:, None]
+    cmix = torch.sigmoid(p["cmix"])
+    xk = xn2 * cmix[0] + xprev2 * (1 - cmix[0])
+    xr = xn2 * cmix[1] + xprev2 * (1 - cmix[1])
+    kk = torch.square(torch.relu(xk @ p["ck"]))
+    y2 = torch.sigmoid(xr @ p["cr"]) * (kk @ p["cv"])
+    new_state = {"wkv": S_last, "tshift": xn[:, -1], "cshift": xn2[:, -1]}
+    return x + y2, new_state
+
+
+# ========================================================== dispatch =======
+def init_block(cfg: ModelConfig, ini: Initializer, kind: str):
+    """Parameters of one block of layer kind ``kind``."""
+    if kind in ("g", "l"):
+        return init_attn_block(cfg, ini, kind)
+    if kind == "m":
+        return init_moe_block(cfg, ini)
+    if kind == "d":
+        return init_attn_block(cfg, ini, "g",
+                               d_ff=cfg.moe.d_ff_dense or cfg.d_ff)
+    if kind == "r":
+        return (init_rwkv_block(cfg, ini) if cfg.family == "rwkv"
+                else init_rglru_block(cfg, ini))
+    raise ValueError(kind)
+
+
+def apply_block(cfg: ModelConfig, kind: str, p, x, *, pos, state=None,
+                enc_out=None, mode="full", engine=None):
+    """Apply one block of layer kind ``kind``; returns (y, new_state)."""
+    if kind in ("g", "l"):
+        return apply_attn_block(cfg, p, x, pos=pos, state=state,
+                                enc_out=enc_out, mode=mode, kind=kind,
+                                engine=engine)
+    if kind == "d":
+        return apply_attn_block(cfg, p, x, pos=pos, state=state,
+                                enc_out=enc_out, mode=mode, kind="g",
+                                engine=engine)
+    if kind == "m":
+        return apply_moe_block(cfg, p, x, pos=pos, state=state,
+                               enc_out=enc_out, mode=mode, engine=engine)
+    if kind == "r":
+        fn = (apply_rwkv_block if cfg.family == "rwkv"
+              else apply_rglru_block)
+        return fn(cfg, p, x, pos=pos, state=state, enc_out=enc_out,
+                  mode=mode, engine=engine)
+    raise ValueError(kind)
+
+
+def init_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+               dtype=torch.float32, enc_len: int = 0, device=None):
+    """Zero decode-state for one block, on ``device``."""
+    if kind in ("g", "l", "m", "d"):
+        t = cache_len if kind != "l" else min(cfg.window, cache_len)
+        t = max(t, 1)
+        return {"self": {
+            "k": torch.zeros((batch, t, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, t, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                             device=device),
+            "length": torch.zeros((), dtype=torch.int32, device=device)}}
+    if cfg.family == "rwkv":
+        d = cfg.d_model
+        nh = d // cfg.rwkv_head_dim
+        return {"wkv": torch.zeros((batch, nh, cfg.rwkv_head_dim,
+                                    cfg.rwkv_head_dim), dtype=dtype,
+                                   device=device),
+                "tshift": torch.zeros((batch, d), dtype=dtype, device=device),
+                "cshift": torch.zeros((batch, d), dtype=dtype, device=device)}
+    return {"h": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+            "conv": torch.zeros((batch, 3, cfg.d_model), dtype=dtype,
+                                device=device)}

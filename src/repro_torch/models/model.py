@@ -1,0 +1,97 @@
+"""Public model API: build_model(config) -> Model (init/loss/serve fns).
+
+The port's copy of ``repro.models.model``. A :class:`Model` is bound to
+one :class:`repro_torch.engine.Engine` and lives on that engine's device:
+its PIM-scope projections run through the engine, and its parameters and
+decode states are made there. ``input_specs`` (the dry-run's) is not
+ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+from . import transformer as T
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclass(frozen=True)
+class Model:
+    """One architecture's functions, bound to ``engine`` and ``device``."""
+
+    cfg: ModelConfig
+    engine: Any
+    device: torch.device
+    init: Callable[..., Any]
+    loss: Callable[..., torch.Tensor]
+    forward: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_decode_state: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig, *, engine=None,
+                device: Optional[Union[str, torch.device]] = None) -> Model:
+    """The :class:`Model` of ``cfg`` on ``engine``.
+
+    ``engine=None`` is :func:`repro_torch.engine.get_engine`: packed torch
+    on the card, which raises without CUDA (it never falls back to the
+    host; pass ``Engine("torch:device=cpu")`` for the CPU). The model's
+    device is the engine's; ``device``, when given, must name it.
+    """
+    if engine is None:
+        from repro_torch.engine import get_engine
+        engine = get_engine()
+    dev = engine.device
+    if device is not None and torch.device(device) != dev:
+        raise ValueError(f"device {device} is not the engine's device "
+                         f"{dev}: a model lives where its engine runs")
+
+    def init(seed: Union[int, torch.Generator] = 0, dtype=torch.float32):
+        """Parameters from ``seed`` (an int or a ``torch.Generator``;
+        an int seeds a generator on the model's device)."""
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return T.init_params(cfg, gen, dtype)
+
+    def loss(params, batch) -> torch.Tensor:
+        tokens = batch["tokens"]
+        labels = batch["labels"]
+        kwargs = {}
+        if cfg.family == "vlm":
+            kwargs["extra_embed"] = batch["patches"]
+        if cfg.family == "encdec":
+            kwargs["enc_frames"] = batch["frames"]
+        logits, _ = T.forward(cfg, params, tokens, engine=engine, **kwargs)
+        if cfg.family == "vlm":   # patches prepended: score text tail only
+            logits = logits[:, -tokens.shape[1]:]
+        # The reference's cross entropy: max-shifted log-sum-exp minus the
+        # label's logit, masked where labels < 0.
+        labels = labels.long()
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        shifted = (logits - m).to(torch.float32)
+        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+        label_logit = torch.gather(
+            logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        label_logit = torch.where(labels >= 0, label_logit,
+                                  0.0).to(torch.float32)
+        nll = lse.to(torch.float32) - label_logit
+        mask = (labels >= 0).to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+    def fwd(params, tokens, **kw):
+        return T.forward(cfg, params, tokens, engine=engine, **kw)
+
+    def decode(params, token, position, states):
+        return T.decode_step(cfg, params, token, position, states,
+                             engine=engine)
+
+    def init_state(batch, cache_len, dtype=torch.float32):
+        return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev)
+
+    return Model(cfg, engine, dev, init, loss, fwd, decode, init_state)

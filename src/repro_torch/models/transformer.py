@@ -1,0 +1,298 @@
+"""Model assembly: layer-pattern segmentation + a loop over stacked units.
+
+The port's copy of ``repro.models.transformer``. The layer pattern is
+decomposed into (prefix, repeating unit x n, suffix) by
+:func:`stack_plan`; unit slots are stacked along a leading axis, as in
+the reference, so parameter trees carry across with one tree map. The
+reference's ``lax.scan`` over units is a Python loop over index ``i`` of
+the stacked tensors; its ``dynamic_update_index_in_dim`` on the stacked
+decode states is an in-place write into them, so a decode step updates
+the caches where they lie and allocates no second copy.
+
+Decode states keep every counter (a cache's ``length``, its ring slot) as
+a device tensor: a decode step never waits for the card.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+from .blocks import _engine, apply_block, init_block, init_state
+from .layers import Initializer, rms_norm, softcap
+
+__all__ = ["stack_plan", "init_params", "forward", "decode_step",
+           "init_decode_state", "encode", "head_matmul", "tree_map"]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts, lists and tuples
+    (``None`` stays ``None``, as an empty subtree in ``jax.tree.map``);
+    ``rest`` are trees of the same structure whose leaves are passed
+    alongside."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)([tree_map(fn, v, *(r[i] for r in rest))
+                           for i, v in enumerate(tree)])
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def head_matmul(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor, *,
+                engine=None) -> torch.Tensor:
+    """LM-head projection, optionally offloaded to the PIM engine.
+
+    With ``cfg.pim_linear_mode != "off"`` the projection runs as a
+    PIM-mode linear through ``engine`` (default
+    :func:`repro_torch.engine.get_engine`, on the card): the Section-VI
+    MAC schedule for ``cfg.pim_linear_bits`` compiles into the engine's
+    program cache once, and the product is the bit-identical quantized
+    integer path. This is the ``"head"`` scope; the block scopes route
+    through :func:`repro_torch.models.blocks.pim_proj` on the same
+    engine.
+    """
+    if cfg.pim_linear_mode == "off":
+        return x @ head
+    return _engine(engine).linear(x, head, n_bits=cfg.pim_linear_bits,
+                                  mode=cfg.pim_linear_mode)
+
+
+# ------------------------------------------------------------ planning ----
+def stack_plan(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...],
+                                          int, Tuple[str, ...]]:
+    """-> (prefix_kinds, unit_kinds, n_units, suffix_kinds)."""
+    kinds = list(cfg.layer_kinds())
+    best = (tuple(kinds), (), 0, ())      # fallback: all prefix
+    best_cost = len(kinds)
+    for p in range(0, min(4, len(kinds)) + 1):
+        for u in range(1, 5):
+            rest = kinds[p:]
+            if len(rest) < u:
+                continue
+            unit = rest[:u]
+            n = 0
+            while (n + 1) * u <= len(rest) and rest[n * u:(n + 1) * u] == unit:
+                n += 1
+            suffix = rest[n * u:]
+            cost = p + len(suffix) + (u if n > 1 else len(kinds))
+            if n > 1 and cost < best_cost:
+                best = (tuple(kinds[:p]), tuple(unit), n, tuple(suffix))
+                best_cost = cost
+    return best
+
+
+def _stack(make: Callable[[], Any], n: int):
+    """``n`` trees from ``make()``, stacked along a new leading axis.
+    Each tree is written into the stack as it is made, so the peak is the
+    stack plus one tree (the reference stacks a list of ``n``)."""
+    first = make()
+    out = tree_map(lambda x: x.new_empty((n, *x.shape)), first)
+    tree_map(lambda d, s: d[0].copy_(s), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda d, s: d[i].copy_(s), out, make())
+    return out
+
+
+def _at(tree, i: int):
+    """Unit ``i`` of a stacked tree (views, no copy)."""
+    return tree_map(lambda s: s[i], tree)
+
+
+def _put(stacked, i: int, new) -> None:
+    """Write ``new`` into unit ``i`` of ``stacked`` in place; a leaf that
+    already is that slot (a cache written in place) is left alone."""
+    def one(dst, src):
+        slot = dst[i]
+        if not (slot.data_ptr() == src.data_ptr()
+                and slot.shape == src.shape):
+            slot.copy_(src)
+    tree_map(one, stacked, new)
+
+
+# ---------------------------------------------------------------- init ----
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32) -> Dict[str, Any]:
+    """The model's parameter tree, drawn from ``generator`` on its device:
+    ``embed``, ``final_norm``, [``lm_head``], ``prefix``, ``scan``
+    (stacked), ``suffix``, [``encoder``], [``patch_proj``]."""
+    ini = Initializer(generator)
+    prefix, unit, n_units, suffix = stack_plan(cfg)
+    params: Dict[str, Any] = {
+        "embed": ini(cfg.vocab_size, cfg.d_model,
+                     scale=cfg.d_model ** -0.5, dtype=dtype),
+        "final_norm": ini.zeros(cfg.d_model, dtype=dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ini(cfg.d_model, cfg.vocab_size,
+                                scale=cfg.d_model ** -0.5, dtype=dtype)
+    params["prefix"] = [init_block(cfg, ini, k) for k in prefix]
+    params["scan"] = [_stack(lambda: init_block(cfg, ini, k), n_units)
+                      for k in unit]
+    params["suffix"] = [init_block(cfg, ini, k) for k in suffix]
+
+    if cfg.family == "encdec":
+        enc_cfg = cfg.scaled(family="decoder")  # no cross-attn weights
+        params["encoder"] = {
+            "blocks": _stack(lambda: init_block(enc_cfg, ini, "g"),
+                             cfg.enc_layers),
+            "norm": ini.zeros(cfg.d_model, dtype=dtype),
+            "pos": ini(cfg.enc_frames, cfg.d_model, scale=0.02, dtype=dtype),
+        }
+    if cfg.family == "vlm":
+        params["patch_proj"] = ini(cfg.d_model, cfg.d_model,
+                                   scale=cfg.d_model ** -0.5, dtype=dtype)
+    return tree_map(lambda x: x.to(dtype), params)
+
+
+# ------------------------------------------------------------- encoder ----
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, *,
+           engine=None) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (stub
+    frontend): non-causal self-attention blocks."""
+    enc = params["encoder"]
+    x = frames + enc["pos"][None, : frames.shape[1]]
+    s = x.shape[1]
+    pos = torch.arange(s, device=x.device)[None].expand(x.shape[0], s)
+    dec_cfg = cfg.scaled(family="decoder")
+    for i in range(cfg.enc_layers):
+        x, _ = apply_block(dec_cfg, "g", _at(enc["blocks"], i), x, pos=pos,
+                           mode="encode", engine=engine)  # non-causal
+    return rms_norm(x, enc["norm"], cfg.norm_eps)
+
+
+# ------------------------------------------------------------- forward ----
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()] * (
+        cfg.d_model ** 0.5 if cfg.family != "rwkv" else 1.0)
+
+
+def _head(cfg: ModelConfig, params, x, engine):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return softcap(head_matmul(cfg, x, head, engine=engine),
+                   cfg.softcap_final)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            extra_embed: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            states=None, mode: str = "full",
+            positions: Optional[torch.Tensor] = None,
+            engine=None):
+    """Full-sequence forward. ``tokens`` (B, S) integers.
+
+    ``extra_embed``: (B, P, D) patch/frame embeddings prepended to the
+    token stream (VLM stub frontend). With ``states`` (prefill), every
+    block's new state is written into them in place. Returns
+    (logits, new_states), new_states ``None`` without ``states``.
+    """
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens)
+    if extra_embed is not None:
+        x = torch.cat([extra_embed @ params["patch_proj"], x], dim=1)
+        s = x.shape[1]
+    if positions is None:
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    else:
+        pos = positions
+    enc_out = None
+    if cfg.family == "encdec" and enc_frames is not None:
+        enc_out = encode(cfg, params, enc_frames, engine=engine)
+
+    prefix, unit, n_units, suffix = stack_plan(cfg)
+    st = states if states is not None else {}
+    new_states: Dict[str, Any] = {"prefix": [], "scan": None, "suffix": []}
+
+    for i, kind in enumerate(prefix):
+        x, ns = apply_block(cfg, kind, params["prefix"][i], x, pos=pos,
+                            state=(st.get("prefix") or [None] * len(prefix))[i],
+                            enc_out=enc_out, mode=mode, engine=engine)
+        new_states["prefix"].append(ns)
+
+    scan_states = st.get("scan")
+    for i in range(n_units):
+        for j, kind in enumerate(unit):
+            x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
+                                pos=pos,
+                                state=None if scan_states is None
+                                else _at(scan_states[j], i),
+                                enc_out=enc_out, mode=mode, engine=engine)
+            if scan_states is not None:
+                _put(scan_states[j], i, ns)
+    new_states["scan"] = scan_states
+
+    for i, kind in enumerate(suffix):
+        x, ns = apply_block(cfg, kind, params["suffix"][i], x, pos=pos,
+                            state=(st.get("suffix") or [None] * len(suffix))[i],
+                            enc_out=enc_out, mode=mode, engine=engine)
+        new_states["suffix"].append(ns)
+
+    logits = _head(cfg, params, x, engine)
+    return logits, (new_states if states is not None else None)
+
+
+# -------------------------------------------------------------- decode ----
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """Zero decode states for every block, stacked as the parameters are,
+    on ``device``."""
+    prefix, unit, n_units, suffix = stack_plan(cfg)
+
+    def one(kind):
+        return init_state(cfg, kind, batch, cache_len, dtype, device=device)
+
+    return {
+        "prefix": [one(k) for k in prefix],
+        "scan": [_stack(lambda: one(k), n_units) for k in unit]
+        if n_units else None,
+        "suffix": [one(k) for k in suffix],
+        "enc_out": (torch.zeros((batch, cfg.enc_frames, cfg.d_model),
+                                dtype=dtype, device=device)
+                    if cfg.family == "encdec" else None),
+    }
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
+                position: torch.Tensor, states: Dict[str, Any], *,
+                engine=None):
+    """One-token serve step. token (B,1); position (B,1) absolute.
+
+    The stacked states are updated in place (the reference carries them
+    through its scan and updates them with ``dynamic_update_index``);
+    the returned tree holds the same stacked buffers."""
+    x = _embed(cfg, params, token)
+    enc_out = states.get("enc_out")
+    prefix, unit, n_units, suffix = stack_plan(cfg)
+    new_states = dict(states)
+    new_states["prefix"] = []
+    new_states["suffix"] = []
+
+    for i, kind in enumerate(prefix):
+        x, ns = apply_block(cfg, kind, params["prefix"][i], x, pos=position,
+                            state=states["prefix"][i], enc_out=enc_out,
+                            mode="decode", engine=engine)
+        new_states["prefix"].append(ns)
+
+    for i in range(n_units):
+        for j, kind in enumerate(unit):
+            x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
+                                pos=position,
+                                state=_at(states["scan"][j], i),
+                                enc_out=enc_out, mode="decode",
+                                engine=engine)
+            _put(states["scan"][j], i, ns)
+
+    for i, kind in enumerate(suffix):
+        x, ns = apply_block(cfg, kind, params["suffix"][i], x, pos=position,
+                            state=states["suffix"][i], enc_out=enc_out,
+                            mode="decode", engine=engine)
+        new_states["suffix"].append(ns)
+
+    return _head(cfg, params, x, engine), new_states
+

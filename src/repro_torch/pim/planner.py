@@ -22,8 +22,6 @@ per-scope cycles/MAC plus a per-token cycle estimate.
 The port's copy of ``repro.pim.planner``. It reads a
 :class:`repro_torch.configs.ModelConfig` (``d_model``, ``d_ff``,
 ``layer_kinds()``, ``moe``, ...) by duck typing, as the reference does.
-It keeps :func:`projection_shapes` here until the port has the model
-zoo's attention module, where the reference keeps it.
 """
 from __future__ import annotations
 
@@ -38,7 +36,7 @@ from repro_torch.device.config import DeviceCapacityError, DeviceConfig
 __all__ = ["GemmShape", "PIMPlan", "plan_model", "BlockLinear",
            "LinearGroup", "BlockPlan", "block_linears", "plan_block",
            "ServeSlotPlan", "plan_serve_slots", "gemms_from_config",
-           "projection_shapes", "DeviceCapacityError"]
+           "DeviceCapacityError"]
 
 
 @dataclass(frozen=True)
@@ -136,33 +134,17 @@ class BlockLinear:
         return self.in_dim * self.count
 
 
-def projection_shapes(cfg) -> "list[Tuple[str, int, int]]":
-    """The attention block's linear inventory: (name, in_dim, out_dim)
-    for the q/k/v/o projections — plus the cross-attention xq/xk/xv/xo
-    set carried by enc-dec decoder blocks (the reference's
-    ``repro.models.attention.projection_shapes``, copied)."""
-    d = cfg.d_model
-    shapes = [("attn.q", d, cfg.q_dim),
-              ("attn.k", d, cfg.kv_dim),
-              ("attn.v", d, cfg.kv_dim),
-              ("attn.o", cfg.q_dim, d)]
-    if cfg.family == "encdec":
-        shapes += [("attn.xq", d, cfg.q_dim),
-                   ("attn.xk", d, cfg.kv_dim),
-                   ("attn.xv", d, cfg.kv_dim),
-                   ("attn.xo", cfg.q_dim, d)]
-    return shapes
-
-
 def block_linears(cfg) -> List[BlockLinear]:
     """The model's full linear inventory by PIM scope.
 
-    Attention shapes come from :func:`projection_shapes` (the
-    reference keeps it beside its attention math); FFN covers dense blocks,
-    the MoE ragged path's active per-expert GEMMs and the RG-LRU block
-    MLP; the LM head is its own scope. The router and the recurrent
-    gate projections stay digital (tiny, latency-critical).
+    Attention shapes come from the attention module itself
+    (:func:`repro_torch.models.attention.projection_shapes`) so the
+    planner cannot drift from what the blocks compute; FFN covers dense
+    blocks, the MoE ragged path's active per-expert GEMMs and the RG-LRU
+    block MLP; the LM head is its own scope. The router and the
+    recurrent gate projections stay digital (tiny, latency-critical).
     """
+    from repro_torch.models.attention import projection_shapes
     d = cfg.d_model
     nm3 = cfg.mlp_type == "swiglu"
     kinds = cfg.layer_kinds()

@@ -4,8 +4,9 @@ chain against exact integer results, the PIM linear layers against
 float64 oracles, and serving (resident through K1, fault-checked,
 unpacked through K2) against the plain-int reference tokens, the
 ``multpim_area`` tables, recorded command traces replayed through K1 and
-K2, and a disk-loaded cache entry run through K1. Every test skips
-without a card; on one,
+K2, a disk-loaded cache entry run through K1, and the model zoo (two
+smoke models and a full-width gemma2-9b block) against the CPU. Every
+test skips without a card; on one,
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it runs where JAX is not installed)."""
 import numpy as np
@@ -580,3 +581,74 @@ def test_disk_loaded_entry_through_k1(card, tmp_path, monkeypatch):
         -2 ** 31, 2 ** 31, (300, c), dtype=np.int64).astype(np.int32))
     assert torch.equal(crossbar_run_packed(st.to(card), loaded.packed).cpu(),
                        crossbar_run_ref_packed(st, loaded.packed))
+
+
+def _pim(cfg, scope):
+    import dataclasses
+    if scope is None:
+        return cfg
+    return dataclasses.replace(cfg, pim_linear_mode="pim", pim_linear_bits=8,
+                               pim_block_mode=scope)
+
+
+@pytest.mark.parametrize("arch,scope", [("gemma2-9b", "full"),
+                                        ("deepseek-moe-16b", "ffn"),
+                                        ("qwen3-8b", None)])
+def test_smoke_model_on_card_against_host(card, arch, scope):
+    """A smoke model on the card's default engine against the same model
+    on the CPU, same parameters: float logits within rtol = atol = 1e-4
+    (float32 in other orders), PIM logits within a relative norm of
+    1e-3 (a last-bit difference can round to another 8-bit level), and
+    the same greedy tokens through the launcher's prefill + decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_map
+    cfg = _pim(get_config(arch, smoke=True), scope)
+    host, dev = Engine("torch:device=cpu"), Engine()
+    on_host, on_card = (build_model(cfg, engine=host),
+                        build_model(cfg, engine=dev))
+    params = on_host.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (2, 12)))
+    want, _ = on_host.forward(params, toks)
+    got, _ = on_card.forward(params_card, toks.to(card))
+    got = got.cpu()
+    if scope is None:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert float(torch.linalg.norm(got - want)
+                     / torch.linalg.norm(want)) <= 1e-3
+    a = serve_model(on_host, params, toks[:, :6], host, gen=4, cache_len=16)
+    b = serve_model(on_card, params_card, toks[:, :6].to(card), dev, gen=4,
+                    cache_len=16)
+    assert np.array_equal(a.tokens, b.tokens) and b.recompiles == 0
+
+
+@pytest.mark.parametrize("scope", [None, "full"])
+def test_full_width_gemma2_block_on_card_against_host(card, scope):
+    """One local-attention block of gemma2-9b at its published width
+    (d_model 3584, 16 x 256 query and 8 KV heads, d_ff 14336, softcap 50)
+    over 1 x 16 tokens, on the card against the CPU on the same
+    parameters: float within rtol = atol = 1e-4, every projection on the
+    PIM path within a relative norm of 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import apply_block, init_block
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.transformer import tree_map
+    cfg = _pim(get_config("gemma2-9b"), scope)
+    p = init_block(cfg, Initializer(torch.Generator().manual_seed(0)), "l")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 16, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(16)[None]
+    want, _ = apply_block(cfg, "l", p, x, pos=pos,
+                          engine=Engine("torch:device=cpu"))
+    got, _ = apply_block(cfg, "l", tree_map(lambda t: t.to(card), p),
+                         x.to(card), pos=pos.to(card), engine=Engine())
+    got = got.cpu()
+    if scope is None:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert float(torch.linalg.norm(got - want)
+                     / torch.linalg.norm(want)) <= 1e-3

@@ -39,7 +39,8 @@ def test_no_jax_and_no_reference_package_loaded():
 
 # Functions whose imports run only when they are called: the trace's
 # PROG table and loader, the disk cache's (de)serialization, the cost
-# model over a planned block from the port's configs, and a replay.
+# model over a planned block from the port's configs, a replay, and a
+# smoke model's forward with every projection on the PIM path.
 _LAZY_PROBE = r"""
 import dataclasses, os, sys, tempfile
 os.environ["REPRO_CACHE_DIR"] = tempfile.mkdtemp()
@@ -63,6 +64,12 @@ assert back.progs() and back.verify_replay(eng) == 1
 cfg = dataclasses.replace(get_config("gemma2-9b", smoke=True),
                           pim_linear_mode="pim")
 charge(block_trace(plan_block(cfg, eng, scopes=("head",)), dev))
+import torch
+from repro_torch.models import build_model
+model = build_model(dataclasses.replace(cfg, pim_block_mode="full"),
+                    engine=eng)
+logits, _ = model.forward(model.init(0), torch.tensor([[3, 4, 5]]))
+assert logits.shape == (1, 3, cfg.vocab_size)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "repro" or m.startswith("repro."))
@@ -72,8 +79,9 @@ print(",".join(leaked))
 
 def test_lazy_imports_load_no_reference_package():
     """Calling the functions that import inside their bodies (trace
-    loading and replay, disk entries, block traces) loads no JAX and
-    nothing of ``repro`` either."""
+    loading and replay, disk entries, block traces, a model forward
+    under ``pim_block_mode="full"``) loads no JAX and nothing of
+    ``repro`` either."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _LAZY_PROBE], env=env,

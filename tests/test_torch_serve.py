@@ -363,10 +363,11 @@ def test_launcher_gate_that_cannot_hold_exits_nonzero():
 
 
 def test_launcher_without_traffic_names_model_mode():
-    with pytest.raises(SystemExit) as exc:
-        launcher.main([])
-    assert "A10" in str(exc.value.code)
-    assert "--traffic" in str(exc.value.code)
+    """Without --traffic the launcher serves in model mode: prefill and
+    greedy decode of --arch, returning the generated tokens."""
+    run = launcher.main(["--smoke", "--pim-backend", PORT, "--batch", "2",
+                         "--prompt-len", "4", "--gen", "2"])
+    assert run.tokens.shape == (2, 2) and run.recompiles == 0
 
 
 def test_launcher_default_backend_needs_cuda():
