@@ -118,17 +118,42 @@ and raises on any failure. Phases, one line each:
     during decode, the K1 launches of the traced ``_profile_pass``, peak
     memory and the trace's events; tokens in range and equal across the
     two runs;
-20. one JSON line describing each kernel;
-21. ``{"ok": true, "device": {...}}`` as the last line.
+20. ``train_parity``: one train step (``make_train_step``, AdamW) of
+    every smoke architecture, then qwen3-8b with two microbatches and
+    remat and deepseek-7b with int8 error feedback, on the card's
+    default engine against ``Engine("torch:device=cpu")`` on the same
+    parameters (the host's init, seed 0, copied) and batches: loss,
+    grad_norm, lr and the second step's loss within the stated
+    tolerances;
+21. ``train_overfit``: ``tests/test_system.py:19``'s recipe on the card
+    (qwen3-8b smoke, remat, two microbatches, lr 3e-3, 12 steps on batch
+    0): last loss < first - 0.5;
+22. ``train_resume``: ``RetryingRunner`` on the card (qwen3-8b smoke,
+    checkpoints every 4 steps, 10 steps, a failure injected at step 6):
+    one restart, final parameters equal to an uninterrupted run's
+    within rtol 1e-6;
+23. ``train``: ``repro_torch.launch.train.main`` at qwen3-8b's published
+    width and 12 of its 36 layers (the depth cut: 20 B of float32 state
+    a parameter), ``--steps 6 --seq-len 256 --global-batch 8
+    --microbatches 2 --trace --metrics``, remat on: losses finite, step
+    seconds, tokens/s, peak memory, ``train.step`` events and the model
+    FLOP rate against the float32 peak (8 layers if the peak passes 76
+    GB, said on its own line); then one more step from the run's final
+    state under ``torch.profiler``: the card's kernel seconds by kind
+    (GEMM, elementwise, reductions, the rest) and their share of that
+    step's wall;
+24. one JSON line describing each kernel;
+25. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
 replays and each run of 19, and read just after (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
-12's timing, 14, 15's group tables and 16 do not count (17 and 18
-launch no kernel: the model path takes the integer products with torch
-matmuls, as the reference takes them in XLA). The program cache spills to an empty directory
+12's timing, 14, 15's group tables and 16 do not count (17, 18 and
+20-23 launch no kernel: the model path takes the integer products with
+torch matmuls, as the reference takes them in XLA, and training runs the
+float path, whose gradients the reference takes in XLA too). The program cache spills to an empty directory
 under ``build/`` for the run (``REPRO_CACHE_DIR``), removed at the end. Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
@@ -236,6 +261,33 @@ CONSISTENCY_TOL = 2e-3
 SERVE_BATCH = 4
 SERVE_PROMPT = 32
 SERVE_GEN = 8
+# The training slice. train_parity: one step of each smoke architecture,
+# then qwen3-8b with two microbatches and remat and deepseek-7b with int8
+# error feedback, card against the CPU on the same parameters and batch:
+# loss within TRAIN_LOSS_RTOL (float32 sums in another order, about 1e-6
+# apart), grad_norm within TRAIN_NORM_RTOL (a sum over every gradient
+# element), lr within 1e-6, and the second step's loss within
+# TRAIN_NEXT_RTOL (after one step AdamW moves each parameter by about
+# sign(g) * lr, so a gradient at the level of float noise may move the
+# two runs' parameter apart by 2 lr). train_overfit and train_resume: the
+# reference tests' recipes (tests/test_system.py:19,
+# tests/test_train_infra.py:71). train: the launcher at qwen3-8b's
+# published width; depth cut from 36 to TRAIN_LAYERS so that float32
+# parameters, gradients, the accumulator and both moments (20 B a
+# parameter) fit 80 GB; TRAIN_FALLBACK_LAYERS when the peak passes
+# TRAIN_PEAK_LIMIT_GB.
+TRAIN_KW = dict(lr=3e-3, warmup_steps=2, total_steps=60)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_NEXT_RTOL = 1e-4
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS = 12
+TRAIN_FALLBACK_LAYERS = 8
+TRAIN_PEAK_LIMIT_GB = 76.0
+TRAIN_STEPS = 6
+TRAIN_SEQ = 256
+TRAIN_BATCH = 8
+TRAIN_MICROBATCHES = 2
 BUILD = Path(__file__).resolve().parent / "build"
 
 
@@ -1304,6 +1356,300 @@ def model_serve_phase(dev) -> int:
     return k1
 
 
+def train_models(cfg, dev, remat: bool = False):
+    """The model of ``cfg`` on the host and on the card."""
+    from repro_torch.engine import Engine
+    from repro_torch.models import build_model
+    return (build_model(cfg, remat=remat, engine=Engine("torch:device=cpu")),
+            build_model(cfg, remat=remat, engine=Engine()))
+
+
+def train_batches(cfg, steps: int, seq: int = 32, batch: int = 8) -> list:
+    """``steps`` numpy batches of the synthetic stream (with the
+    family's stub inputs)."""
+    from repro_torch.data import DataConfig, make_batch_fn
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = (cfg.n_patches, cfg.d_model)
+    if cfg.family == "encdec":
+        extra["frames"] = (cfg.enc_frames, cfg.d_model)
+    fn = make_batch_fn(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch), extra)
+    return [fn(s) for s in range(steps)]
+
+
+def on(dev, batch: dict) -> dict:
+    """A numpy batch as tensors on ``dev``."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_parity_phase(dev) -> None:
+    """Phase 20: one train step of each smoke architecture, then
+    qwen3-8b with two microbatches and remat and deepseek-7b with int8
+    error feedback, on the card's default engine against the host on the
+    same parameters (the host's init, copied) and batches: loss,
+    grad_norm, lr, and the second step's loss."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    cases = ([(a, 1, False, False) for a in sorted(ARCHS)]
+             + [("qwen3-8b", 2, True, False), ("deepseek-7b", 1, False, True)])
+    for arch, mb, remat, compress in cases:
+        cfg = get_config(arch, smoke=True)
+        models = train_models(cfg, dev, remat)
+        steps = [make_train_step(m, AdamWConfig(**TRAIN_KW),
+                                 microbatches=mb, compress_grads=compress)
+                 for m in models]
+        host_state = steps[0][1](0)       # the host's init_fn, seed 0
+        card_state = tree_map(
+            lambda t: t.detach().to(dev, copy=True).requires_grad_(
+                t.requires_grad),
+            host_state)
+        batches = train_batches(cfg, 2)
+        mets = []
+        for model, (step, _, _), state in zip(models, steps,
+                                              (host_state, card_state)):
+            out = []
+            for b in batches:
+                *state, met = step(*state, on(model.device, b))
+                out.append({k: float(v) for k, v in met.items()})
+            mets.append(out)
+        host, card = mets
+        err = {k: abs(card[0][k] - host[0][k]) / abs(host[0][k])
+               for k in ("loss", "grad_norm", "lr")}
+        err["next_loss"] = (abs(card[1]["loss"] - host[1]["loss"])
+                            / abs(host[1]["loss"]))
+        check(all(np.isfinite(m["loss"]) for m in card),
+              f"train_parity {arch}: loss not finite")
+        check(err["loss"] <= TRAIN_LOSS_RTOL
+              and err["grad_norm"] <= TRAIN_NORM_RTOL and err["lr"] <= 1e-6
+              and err["next_loss"] <= TRAIN_NEXT_RTOL,
+              f"train_parity {arch}: card against host {err}")
+        phase("train_parity", arch=arch, microbatches=mb, remat=remat,
+              compress_grads=compress, loss=card[0]["loss"],
+              grad_norm=card[0]["grad_norm"], next_loss=card[1]["loss"],
+              rel_err=json.dumps(err),
+              tol=f"loss {TRAIN_LOSS_RTOL}, grad_norm {TRAIN_NORM_RTOL}, "
+                  f"lr 1e-6, next loss {TRAIN_NEXT_RTOL}")
+    phase("train_parity", cases=len(cases), all_within=True,
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def train_overfit_phase(dev) -> None:
+    """Phase 21: tests/test_system.py:19's recipe on the card: qwen3-8b
+    smoke, remat, two microbatches, 12 steps on batch 0; the last loss
+    must be below the first minus 0.5."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = train_models(cfg, dev, remat=True)[1]
+    step, init_fn, jit_for = make_train_step(
+        model, AdamWConfig(**TRAIN_KW), microbatches=2)
+    state = init_fn(0)
+    fixed = on(dev, train_batches(cfg, 1)[0])
+    step = jit_for(state[0], fixed)
+    losses = []
+    for _ in range(12):
+        *state, met = step(*state, fixed)
+        losses.append(float(met["loss"]))
+    check(losses[-1] < losses[0] - 0.5,
+          f"train_overfit: losses {losses} did not drop by 0.5")
+    phase("train_overfit", arch=cfg.name, microbatches=2, remat=True,
+          steps=12, first=losses[0], last=losses[-1],
+          losses=json.dumps([round(x, 4) for x in losses]),
+          gate="last < first - 0.5",
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def train_resume_phase(dev) -> None:
+    """Phase 22: RetryingRunner on the card, qwen3-8b smoke,
+    checkpoints every 4 steps, 10 steps with a failure injected at step
+    6: one restart, and final parameters equal to an uninterrupted run's
+    within rtol 1e-6 (tests/test_train_infra.py:71)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (RetryingRunner, make_train_step,
+                                   save_checkpoint)
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = train_models(cfg, dev)[1]
+    step, init_fn, _ = make_train_step(model, AdamWConfig(**TRAIN_KW))
+    batches = [on(dev, b) for b in train_batches(cfg, 10)]
+    root = Path(tempfile.mkdtemp(prefix="train-resume-", dir=BUILD))
+    boom = {"armed": True}
+
+    def inject(s):
+        if s == 6 and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("simulated device loss")
+
+    finals, metrics = [], []
+    try:
+        for name, hook in (("a", inject), ("b", None)):
+            params, opt, resid = init_fn(0)
+            save_checkpoint(str(root / name), 0, {"params": params,
+                                                  "opt": opt})
+            runner = RetryingRunner(step_fn=step,
+                                    batch_fn=lambda s: batches[s],
+                                    ckpt_dir=str(root / name), ckpt_every=4)
+            (params, opt, _), m = runner.run((params, opt, resid), 0, 10,
+                                             inject_failure=hook)
+            finals.append(params)
+            metrics.append(m)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(metrics[0]["restarts"] == 1 and metrics[1]["restarts"] == 0,
+          f"train_resume: restarts {metrics}")
+    worst = 0.0
+    for a, b in zip(tree_leaves(finals[0]), tree_leaves(finals[1])):
+        check(a.device == dev and a.requires_grad,
+              "train_resume: a restored leaf left the card or its grad")
+        check(torch.allclose(a, b, rtol=1e-6, atol=0),
+              "train_resume: resumed parameters differ from the "
+              "uninterrupted run's")
+        worst = max(worst, float((a - b).detach().abs().max()))
+    phase("train_resume", arch=cfg.name, steps=10, ckpt_every=4,
+          failure_at=6, restarts=metrics[0]["restarts"],
+          final_loss=metrics[0]["loss"], max_abs_diff=worst, tol="rtol=1e-6",
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def train_launch(layers: int) -> tuple:
+    """One run of the training launcher at TRAIN_ARCH's published width
+    and ``layers`` layers, traced; returns (run, peak bytes, trace
+    events, matmul parameters)."""
+    from repro_torch import obs
+    from repro_torch.launch import train as launcher
+    from repro_torch.tree import tree_leaves
+    trace = BUILD / "train_trace.json"
+    metrics = BUILD / "train_metrics.json"
+    argv = ["--arch", TRAIN_ARCH, "--override",
+            json.dumps({"n_layers": layers}), "--steps", str(TRAIN_STEPS),
+            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--microbatches", str(TRAIN_MICROBATCHES), "--trace", str(trace),
+            "--metrics", str(metrics)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.reset_trace()
+    try:
+        run = launcher.main(argv)
+    finally:
+        obs.disable()
+    peak = torch.cuda.max_memory_allocated()
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("name") == "train.step"]
+    snap = json.loads(metrics.read_text())
+    trace.unlink()
+    metrics.unlink()
+    obs.reset_trace()
+    matmul = sum(p.numel() for p in tree_leaves(run.state[0])
+                 if p.ndim >= 2)
+    return run, peak, events, matmul, snap
+
+
+def train_profile(state, layers: int, dev) -> dict:
+    """One more train step from the launcher's final ``state`` (same
+    model, batch 0 of its stream) under ``torch.profiler``: the wall,
+    the summed time of the card's kernels by kind (GEMM, elementwise,
+    reductions, the rest) and their share of the wall (one stream, so
+    kernels do not overlap). The profiler's overhead lengthens the wall:
+    the step time to report is ``train``'s, not this one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=layers)
+    model = train_models(cfg, dev, remat=True)[1]
+    step, _, _ = make_train_step(
+        model, AdamWConfig(lr=3e-4, warmup_steps=50, total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MICROBATCHES)
+    batch = on(dev, train_batches(cfg, 1, TRAIN_SEQ, TRAIN_BATCH)[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        *state, met = step(*state, batch)
+        float(met["loss"])
+        wall = time.perf_counter() - t0
+    kinds = {"gemm": 0.0, "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+    top = []
+    n = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        name = e.key.lower()
+        kind = ("gemm" if "gemm" in name else
+                "elementwise" if "elementwise" in name else
+                "reduce" if "reduce" in name else "other")
+        kinds[kind] += us / 1e6
+        n += e.count
+        top.append((us / 1e6, e.key[:60]))
+    busy = sum(kinds.values())
+    return {"wall_s": wall, "kernel_s": busy,
+            "busy_share": busy / wall if busy else "not measured",
+            "by_kind_s": json.dumps(kinds), "kernel_launches": n,
+            "top": json.dumps(sorted(top, reverse=True)[:5])}
+
+
+def train_phase(dev) -> None:
+    """Phase 23: ``repro_torch.launch.train.main`` on the card's default
+    engine at qwen3-8b's published width (d_model 4096, 32 x 128 query
+    and 8 KV heads, d_ff 12288, vocab 151,936) and TRAIN_LAYERS of its
+    36 layers, remat on, two microbatches: losses finite, step seconds
+    (p50 without the first), tokens/s, peak memory, the ``train.step``
+    events, and the model FLOP rate (8 x matmul parameters x tokens a
+    step, with remat) against the float32 peak (TF32 off); then one
+    more step under ``torch.profiler`` (``train_profile``)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    layers = TRAIN_LAYERS
+    run, peak, events, matmul, snap = train_launch(layers)
+    if peak / 1e9 > TRAIN_PEAK_LIMIT_GB:
+        phase("train", depth_fallback=f"{layers} layers peaked at "
+              f"{peak / 1e9:.3f} GB > {TRAIN_PEAK_LIMIT_GB} GB; rerun at "
+              f"{TRAIN_FALLBACK_LAYERS}")
+        layers = TRAIN_FALLBACK_LAYERS
+        run = None      # free the deeper run's state before the next
+        run, peak, events, matmul, snap = train_launch(layers)
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=layers)
+    check(len(run.losses) == TRAIN_STEPS
+          and all(np.isfinite(x) for x in run.losses),
+          f"train: losses {run.losses}")
+    check(len(events) == TRAIN_STEPS,
+          f"train: {len(events)} train.step events, not {TRAIN_STEPS}")
+    prof = train_profile(run.state, layers, dev)
+    run.state = ()
+    p50 = statistics.median(run.step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 8 * matmul * tokens
+    phase("train", arch=cfg.name, layers=layers,
+          layers_published=get_config(TRAIN_ARCH).n_layers,
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}x{cfg.hd}",
+          kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+          params=cfg.param_count(), matmul_params=matmul,
+          seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+          microbatches=TRAIN_MICROBATCHES, remat=True,
+          losses=json.dumps(run.losses), step_s=json.dumps(run.step_s),
+          step_s_p50=p50, tokens_per_s=tokens / p50,
+          gauge_tokens_per_s=snap["gauges"]["train.tokens_per_sec"],
+          model_tflop_per_step=flops / 1e12,
+          model_tflop_s=flops / p50 / 1e12,
+          fp32_peak_share=flops / p50 / OPS_PER_S,
+          fp32_bound_s=flops / OPS_PER_S, peak_gb=peak / 1e9,
+          train_step_events=len(events),
+          seconds=round(time.perf_counter() - t_phase, 1))
+    phase("train_profile", arch=cfg.name, layers=layers, **prof)
+    torch.cuda.empty_cache()
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -1734,10 +2080,16 @@ def run_phases() -> None:
     model_parity_phase(dev)
     model_consistency_phase(dev)
     main_launches["K1"] += model_serve_phase(dev)
+
+    # -------------------------------------------- 20-23. the training slice ----
+    train_parity_phase(dev)
+    train_overfit_phase(dev)
+    train_resume_phase(dev)
+    train_phase(dev)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 20. kernels line ----
+    # ------------------------------------------------- 24. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

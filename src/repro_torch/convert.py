@@ -93,7 +93,7 @@ def params_from_numpy(tree, device="cpu"):
     as the reference keeps it) -> the port's tree of tensors on
     ``device``, dtypes kept (the reference's float32 parameters stay
     float32)."""
-    from repro_torch.models.transformer import tree_map
+    from repro_torch.tree import tree_map
     # np.array copies: a read-only buffer (a JAX array's view) cannot
     # back a tensor.
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),

@@ -3,6 +3,9 @@
 :mod:`.serve` is the serving launcher: ``python -m repro_torch.launch.serve
 --arch gemma2-9b --pim --pim-scope full`` prefills and greedily decodes a
 model zoo architecture, and ``--traffic N`` serves a seeded synthetic
-trace through the continuous batcher; both on the port's engine, on the
-card by default.
+trace through the continuous batcher. :mod:`.train` is the training
+launcher: ``python -m repro_torch.launch.train --arch qwen3-8b`` trains
+with AdamW, microbatching and remat, checkpointing through the retrying
+runner under ``--ckpt-dir``. Both run on the port's engine, on the card
+by default; :mod:`.mesh` builds the host's device mesh.
 """

@@ -34,9 +34,11 @@ class Model:
     init_decode_state: Callable[..., Any]
 
 
-def build_model(cfg: ModelConfig, *, engine=None,
+def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
                 device: Optional[Union[str, torch.device]] = None) -> Model:
-    """The :class:`Model` of ``cfg`` on ``engine``.
+    """The :class:`Model` of ``cfg`` on ``engine``; with ``remat`` its
+    ``loss`` rematerialises each stacked unit in backward (see
+    :func:`repro_torch.models.transformer.forward`).
 
     ``engine=None`` is :func:`repro_torch.engine.get_engine`: packed torch
     on the card, which raises without CUDA (it never falls back to the
@@ -67,7 +69,8 @@ def build_model(cfg: ModelConfig, *, engine=None,
             kwargs["extra_embed"] = batch["patches"]
         if cfg.family == "encdec":
             kwargs["enc_frames"] = batch["frames"]
-        logits, _ = T.forward(cfg, params, tokens, engine=engine, **kwargs)
+        logits, _ = T.forward(cfg, params, tokens, remat=remat,
+                              engine=engine, **kwargs)
         if cfg.family == "vlm":   # patches prepended: score text tail only
             logits = logits[:, -tokens.shape[1]:]
         # The reference's cross entropy: max-shifted log-sum-exp minus the

@@ -19,28 +19,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_flatten, tree_map
 
 from .blocks import _engine, apply_block, init_block, init_state
 from .layers import Initializer, rms_norm, softcap
 
 __all__ = ["stack_plan", "init_params", "forward", "decode_step",
            "init_decode_state", "encode", "head_matmul", "tree_map"]
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """Map ``fn`` over the leaves of nested dicts, lists and tuples
-    (``None`` stays ``None``, as an empty subtree in ``jax.tree.map``);
-    ``rest`` are trees of the same structure whose leaves are passed
-    alongside."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)([tree_map(fn, v, *(r[i] for r in rest))
-                           for i, v in enumerate(tree)])
-    if tree is None:
-        return None
-    return fn(tree, *rest)
 
 
 def head_matmul(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor, *,
@@ -167,6 +152,25 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, *,
 
 
 # ------------------------------------------------------------- forward ----
+def _unit_checkpointed(cfg: ModelConfig, unit, stacked, i: int, x, pos,
+                       enc_out, mode: str, engine):
+    """Unit ``i`` of the stacked loop under activation checkpointing: its
+    parameter views are the checkpoint's inputs, so their gradients flow
+    into the stacked leaves."""
+    from torch.utils.checkpoint import checkpoint
+    leaves, treedef = tree_flatten([_at(s, i) for s in stacked])
+
+    def run(h, *flat):
+        blks = treedef.unflatten(flat)
+        for j, kind in enumerate(unit):
+            h, _ = apply_block(cfg, kind, blks[j], h, pos=pos,
+                               enc_out=enc_out, mode=mode, engine=engine)
+        return h
+    # No draw in the forward needs replaying: skip saving the RNG state.
+    return checkpoint(run, x, *leaves, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()] * (
         cfg.d_model ** 0.5 if cfg.family != "rwkv" else 1.0)
@@ -184,13 +188,21 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             enc_frames: Optional[torch.Tensor] = None,
             states=None, mode: str = "full",
             positions: Optional[torch.Tensor] = None,
-            engine=None):
+            remat: bool = False, engine=None):
     """Full-sequence forward. ``tokens`` (B, S) integers.
 
     ``extra_embed``: (B, P, D) patch/frame embeddings prepended to the
     token stream (VLM stub frontend). With ``states`` (prefill), every
     block's new state is written into them in place. Returns
     (logits, new_states), new_states ``None`` without ``states``.
+
+    ``remat`` (the training loss's forward, without ``states``): each
+    unit of the stacked loop runs under
+    ``torch.utils.checkpoint.checkpoint``, the counterpart of the
+    reference's ``jax.checkpoint`` on its scan step, so backward keeps
+    only each unit's input and recomputes the rest; prefix and suffix
+    blocks are not rematerialised, as in the reference. The gradients do
+    not change, only the peak memory.
     """
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -217,6 +229,10 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
     scan_states = st.get("scan")
     for i in range(n_units):
+        if remat and scan_states is None:
+            x = _unit_checkpointed(cfg, unit, params["scan"], i, x, pos,
+                                   enc_out, mode, engine)
+            continue
         for j, kind in enumerate(unit):
             x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
                                 pos=pos,

@@ -1,10 +1,18 @@
-"""repro_torch.train: the serving half of ``repro.train``.
+"""repro_torch.train: the port's copy of ``repro.train``.
 
-:func:`make_serve_step` and :func:`make_prefill`, the step factories the
-launcher's model mode runs. The port serves one unsharded model on one
-card, so there are no shardings. Training (``make_train_step``,
-checkpoints, the fault runner, sharding) is not ported yet.
+:func:`make_train_step` (microbatched AdamW, int8 error feedback,
+rematerialised units through the model), :func:`make_serve_step` and
+:func:`make_prefill`; checkpoints in the reference's format
+(:mod:`.checkpoint`); the retrying runner, straggler watch and elastic
+re-mesh (:mod:`.fault`); and the partition rules (:mod:`.sharding`),
+which return specs only: the port runs one unsharded model on one card.
 """
-from .step import make_prefill, make_serve_step
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .fault import RetryingRunner, StragglerWatch, elastic_remesh
+from .sharding import batch_shardings, param_shardings, state_shardings
+from .step import make_prefill, make_serve_step, make_train_step
 
-__all__ = ["make_serve_step", "make_prefill"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill",
+           "param_shardings", "batch_shardings", "state_shardings",
+           "save_checkpoint", "restore_checkpoint", "latest_step",
+           "RetryingRunner", "StragglerWatch", "elastic_remesh"]

@@ -1,0 +1,189 @@
+"""Fault tolerance: retrying step runner, straggler watch, elastic re-mesh.
+
+The port's copy of ``repro.train.fault``: a step ends on the host when
+its loss is read (``float(m["loss"])`` waits for the card, where the
+reference calls ``jax.block_until_ready``), and :func:`elastic_remesh`
+returns the port's :class:`~repro_torch.launch.mesh.Mesh`.
+
+Designed for the 512-chip (and beyond) deployment where per-step failure
+is routine:
+
+* **RetryingRunner** — runs steps with checkpoint/restart semantics:
+  any exception (device loss, preemption, numerical trap) triggers a
+  restore from the last published checkpoint and replay; the
+  deterministic data pipeline makes replay bit-identical.
+* **StragglerWatch** — per-host heartbeat ages + per-step wall-time EMA;
+  a step slower than ``k x EMA`` marks the slowest host suspect. On TPU
+  pods real detection uses the runtime's barrier timings; the interface
+  here is transport-agnostic and unit-tested with simulated heartbeats.
+  Straggler and dead-host events land on ``train.straggler.*`` obs
+  counters so they show up in the same metrics dump as the serve-side
+  fault counters.
+
+Retry bookkeeping (attempt counting, backoff, ``*.retries`` /
+``*.exhausted`` counters) is delegated to the shared
+:class:`repro_torch.faults.policy.RetryPolicy` — the same policy object the
+resident executor's replay loop and the serve batcher's restart path
+use, so every retry in the system is bounded and counted the same way.
+* **elastic_remesh** — on a shrunk/grown device set, rebuild the mesh
+  with the survivors (largest (data, model) factorization that preserves
+  the model-parallel degree if possible), then re-lower the step and
+  restore the mesh-agnostic checkpoint onto the new topology.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from repro_torch import obs
+from repro_torch.faults.policy import RetryPolicy
+from repro_torch.launch.mesh import Mesh
+
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+logger = logging.getLogger("repro_torch.fault")
+
+__all__ = ["StragglerWatch", "RetryingRunner", "elastic_remesh",
+           "choose_mesh_shape"]
+
+
+class StragglerWatch:
+    """Step-time EMA + host heartbeats -> suspect set."""
+
+    def __init__(self, slow_factor: float = 2.5, ema: float = 0.9,
+                 heartbeat_timeout_s: float = 60.0):
+        self.slow_factor = slow_factor
+        self.ema_coef = ema
+        self.timeout = heartbeat_timeout_s
+        self.ema: Optional[float] = None
+        self.heartbeats: Dict[int, float] = {}
+        self.suspects: Dict[int, int] = {}
+
+    def heartbeat(self, host: int, t: Optional[float] = None) -> None:
+        """Record a heartbeat of ``host`` at ``t`` (default now)."""
+        self.heartbeats[host] = time.monotonic() if t is None else t
+
+    def observe_step(self, wall_s: float,
+                     slowest_host: Optional[int] = None) -> bool:
+        """Returns True if this step is a straggler event."""
+        if self.ema is None:
+            self.ema = wall_s
+            return False
+        slow = wall_s > self.slow_factor * self.ema
+        # stragglers should not poison the baseline
+        if not slow:
+            self.ema = self.ema_coef * self.ema + (1 - self.ema_coef) * wall_s
+        if slow:
+            obs.counter("train.straggler.events").inc()
+            obs.instant("train.straggler", wall_s=wall_s, ema_s=self.ema,
+                        host=slowest_host)
+            if slowest_host is not None:
+                self.suspects[slowest_host] = self.suspects.get(
+                    slowest_host, 0) + 1
+        return slow
+
+    def dead_hosts(self, now: Optional[float] = None) -> List[int]:
+        """Hosts whose last heartbeat is older than the timeout."""
+        now = time.monotonic() if now is None else now
+        dead = [h for h, t in self.heartbeats.items()
+                if now - t > self.timeout]
+        obs.gauge("train.straggler.dead_hosts").set(len(dead))
+        return dead
+
+    def evict_candidates(self, strikes: int = 3) -> List[int]:
+        """Hosts named slowest in at least ``strikes`` straggler steps."""
+        return [h for h, n in self.suspects.items() if n >= strikes]
+
+
+def choose_mesh_shape(n_devices: int, model_parallel: int
+                      ) -> Tuple[int, int]:
+    """Largest (data, model) grid from the survivors, keeping TP degree
+    if divisible, else the largest power-of-two TP that fits."""
+    tp = model_parallel
+    while tp > 1 and n_devices % tp != 0:
+        tp //= 2
+    return n_devices // tp, tp
+
+
+def elastic_remesh(devices, model_parallel: int) -> Mesh:
+    """A (data, model) :class:`Mesh` over the surviving ``devices``
+    (shape from :func:`choose_mesh_shape`)."""
+    dp, tp = choose_mesh_shape(len(devices), model_parallel)
+    devices = list(devices)
+    grid = tuple(tuple(devices[i * tp:(i + 1) * tp]) for i in range(dp))
+    return Mesh((dp, tp), ("data", "model"), grid)
+
+
+@dataclass
+class RetryingRunner:
+    """Checkpointed, retrying training loop.
+
+    Retry accounting runs through the shared
+    :class:`repro_torch.faults.policy.RetryPolicy` (``policy``); the legacy
+    ``max_retries`` knob builds a default zero-backoff policy when no
+    explicit one is given, preserving the original semantics: up to
+    ``max_retries`` *consecutive* failures are retried (the counter
+    resets on every successful step), the next one propagates.
+    """
+
+    step_fn: Callable[..., Tuple]         # (params, opt, resid, batch) -> ...
+    batch_fn: Callable[[int], Any]        # step -> device-ready batch
+    ckpt_dir: str
+    ckpt_every: int = 100
+    max_retries: int = 3
+    watch: StragglerWatch = field(default_factory=StragglerWatch)
+    on_failure: Optional[Callable[[Exception, int], None]] = None
+    policy: Optional[RetryPolicy] = None
+
+    def __post_init__(self):
+        if self.policy is None:
+            self.policy = RetryPolicy(max_retries=self.max_retries,
+                                      scope="train.retry")
+
+    def run(self, state: Tuple, start_step: int, num_steps: int,
+            inject_failure: Optional[Callable[[int], None]] = None
+            ) -> Tuple[Tuple, Dict]:
+        """state = (params, opt_state, residual). Returns final state and
+        run metrics. ``inject_failure`` is the test hook."""
+        params, opt_state, residual = state
+        step = start_step
+        retries = 0
+        metrics: Dict[str, Any] = {"straggler_events": 0, "restarts": 0}
+        while step < start_step + num_steps:
+            try:
+                if inject_failure is not None:
+                    inject_failure(step)
+                t0 = time.monotonic()
+                batch = self.batch_fn(step)
+                params, opt_state, residual, m = self.step_fn(
+                    params, opt_state, residual, batch)
+                loss = float(m["loss"])     # waits for the card
+                wall = time.monotonic() - t0
+                if self.watch.observe_step(wall):
+                    metrics["straggler_events"] += 1
+                    logger.warning("straggler step %d: %.2fs", step, wall)
+                metrics["loss"] = loss
+                step += 1
+                retries = 0
+                if step % self.ckpt_every == 0:
+                    save_checkpoint(self.ckpt_dir, step,
+                                    {"params": params, "opt": opt_state})
+            except Exception as e:   # noqa: BLE001 — any fault retries
+                retries += 1
+                metrics["restarts"] += 1
+                if self.on_failure:
+                    self.on_failure(e, step)
+                if retries > self.policy.max_retries:
+                    self.policy.note_exhausted()
+                    raise
+                self.policy.note_retry(retries - 1)
+                logger.warning("step %d failed (%s); restoring", step, e)
+                last = latest_step(self.ckpt_dir)
+                if last is not None:
+                    restored, _ = restore_checkpoint(
+                        self.ckpt_dir, {"params": params, "opt": opt_state})
+                    params, opt_state = restored["params"], restored["opt"]
+                    step = last
+        return (params, opt_state, residual), metrics

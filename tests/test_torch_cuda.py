@@ -4,9 +4,11 @@ chain against exact integer results, the PIM linear layers against
 float64 oracles, and serving (resident through K1, fault-checked,
 unpacked through K2) against the plain-int reference tokens, the
 ``multpim_area`` tables, recorded command traces replayed through K1 and
-K2, a disk-loaded cache entry run through K1, and the model zoo (two
-smoke models and a full-width gemma2-9b block) against the CPU. Every
-test skips without a card; on one,
+K2, a disk-loaded cache entry run through K1, the model zoo (two smoke
+models and a full-width gemma2-9b block) against the CPU, and training
+(two smoke models' train steps against the CPU, a checkpoint restored
+onto the card, the launcher's default device). Every test skips
+without a card; on one,
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it runs where JAX is not installed)."""
 import numpy as np
@@ -652,3 +654,75 @@ def test_full_width_gemma2_block_on_card_against_host(card, scope):
     else:
         assert float(torch.linalg.norm(got - want)
                      / torch.linalg.norm(want)) <= 1e-3
+
+
+def _train_batch(cfg, dev, b=4, s=32):
+    rng = np.random.default_rng(5)
+    return {k: torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s),
+                                             dtype=np.int32)).to(dev)
+            for k in ("tokens", "labels")}
+
+
+@pytest.mark.parametrize("arch,microbatches", [("qwen3-8b", 2),
+                                               ("rwkv6-7b", 1)])
+def test_train_step_on_card_against_host(card, arch, microbatches):
+    """Two AdamW train steps of a smoke model (remat, microbatched for
+    qwen3-8b) on the card against the CPU from the same parameters:
+    loss within rtol 1e-5, grad_norm 1e-4, the second loss 1e-4 (float32
+    sums in other orders; AdamW's first step moves a parameter by about
+    sign(g) lr); every state leaf stays on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(arch, smoke=True)
+    kw = dict(lr=3e-3, warmup_steps=2, total_steps=60)
+    out = []
+    state = None
+    for engine in (Engine("torch:device=cpu"), Engine()):
+        model = build_model(cfg, remat=True, engine=engine)
+        step, init_fn, _ = make_train_step(model, AdamWConfig(**kw),
+                                           microbatches=microbatches)
+        if state is None:
+            state = init_fn(0)
+            host_state = tree_map(lambda t: t.detach().clone()
+                                  .requires_grad_(t.requires_grad), state)
+        else:
+            state = tree_map(lambda t: t.detach().to(card)
+                             .requires_grad_(t.requires_grad), host_state)
+        mets = []
+        for _ in range(2):
+            *state, met = step(*state, _train_batch(cfg, model.device))
+            mets.append({k: float(v) for k, v in met.items()})
+        out.append(mets)
+    assert all(t.device.type == "cuda" for t in tree_leaves(state))
+    (h0, h1), (c0, c1) = out
+    assert c0["loss"] == pytest.approx(h0["loss"], rel=1e-5)
+    assert c0["grad_norm"] == pytest.approx(h0["grad_norm"], rel=1e-4)
+    assert c0["lr"] == pytest.approx(h0["lr"], rel=1e-6)
+    assert c1["loss"] == pytest.approx(h1["loss"], rel=1e-4)
+
+
+def test_checkpoint_restores_onto_card(card, tmp_path):
+    """A tree saved from the card restores onto the card, equal, with
+    each leaf's requires_grad."""
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    tree = {"w": torch.randn(4, 8, device=card).requires_grad_(),
+            "count": torch.tensor(3, dtype=torch.int32, device=card)}
+    save_checkpoint(str(tmp_path), 3, tree)
+    got, step = restore_checkpoint(str(tmp_path), tree)
+    assert step == 3 and got["w"].device.type == "cuda"
+    assert got["w"].requires_grad and torch.equal(got["w"], tree["w"])
+    assert torch.equal(got["count"], tree["count"])
+
+
+def test_train_launcher_defaults_to_card(card):
+    """Without --pim-backend the launcher trains on the card."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.tree import tree_leaves
+    run = launcher.main(["--arch", "qwen3-8b", "--smoke", "--steps", "3",
+                         "--seq-len", "32", "--global-batch", "4",
+                         "--microbatches", "2"])
+    assert len(run.losses) == 3 and all(np.isfinite(run.losses))
+    assert all(t.device.type == "cuda" for t in tree_leaves(run.state[0]))
