@@ -142,8 +142,26 @@ and raises on any failure. Phases, one line each:
     state under ``torch.profiler``: the card's kernel seconds by kind
     (GEMM, elementwise, reductions, the rest) and their share of that
     step's wall;
-24. one JSON line describing each kernel;
-25. ``{"ok": true, "device": {...}}`` as the last line.
+24. ``dryrun``: ``repro_torch.launch.dryrun.lower_cell`` on both
+    production meshes (16 x 16 and 2 x 16 x 16) for qwen3-8b x train_4k,
+    deepseek-moe-16b x decode_32k and rwkv6-7b x long_500k: each record's
+    per-device peak GB, FLOPs, trace seconds and whether the peak fits
+    the card's memory (``torch.cuda.get_device_properties(0)``);
+25. ``dryrun_check``: the two decode cells one card holds whole,
+    rwkv6-7b and recurrentgemma-9b x long_500k, and a train cell it
+    holds, qwen3-8b at full width cut to 8 layers (its units traced at 2
+    and 3 and extrapolated) x 4 sequences of 1,024 tokens in 2
+    microbatches, bf16 parameters and float32 AdamW state, on the card's
+    own 1 x 1 mesh (``make_host_mesh()``): the record's argument bytes
+    equal the bytes of what ``real_step`` builds on the card (seed 0),
+    its peak is within 10% of ``torch.cuda.max_memory_allocated`` over
+    four real steps (the first a warm-up) above what was allocated
+    before, and its temp bytes within 10% of the most a step after the
+    warm-up allocated above what was live when it began; the step's
+    milliseconds (CUDA events) against its bytes bound (the argument
+    bytes read once at 3.35 TB/s);
+26. one JSON line describing each kernel;
+27. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
@@ -151,10 +169,12 @@ replays and each run of 19, and read just after (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
 12's timing, 14, 15's group tables and 16 do not count (17, 18 and
-20-23 launch no kernel: the model path takes the integer products with
-torch matmuls, as the reference takes them in XLA, and training runs the
-float path, whose gradients the reference takes in XLA too). The program cache spills to an empty directory
-under ``build/`` for the run (``REPRO_CACHE_DIR``), removed at the end. Float32 products run without TF32
+20-25 launch no kernel: the model path takes the integer products with
+torch matmuls, as the reference takes them in XLA, training runs the
+float path, whose gradients the reference takes in XLA too, and the
+dry-run traces fake tensors and checks itself on the float path). The
+program cache spills to an empty directory under ``build/`` for the run
+(``REPRO_CACHE_DIR``), removed at the end. Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False): K3's plain version
 and the library yardstick are full float32.
@@ -288,6 +308,21 @@ TRAIN_STEPS = 6
 TRAIN_SEQ = 256
 TRAIN_BATCH = 8
 TRAIN_MICROBATCHES = 2
+# The dry-run slice. dryrun: records of a train, a MoE decode and a
+# long-context cell on both production meshes. dryrun_check: the decode
+# cells one card holds whole (bf16 parameters of about 14.5 and 18.8 GB,
+# small recurrent and windowed states) and a train cell cut in depth,
+# their record on the card's own 1 x 1 mesh against real steps: argument
+# bytes equal, peak and temp bytes each within DRYRUN_RTOL of the
+# measured. The train cell is (arch, layers, seq_len, batch,
+# microbatches).
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"))
+DRYRUN_CHECK_CELLS = (("rwkv6-7b", "long_500k"),
+                      ("recurrentgemma-9b", "long_500k"))
+DRYRUN_TRAIN_CHECK = ("qwen3-8b", 8, 1024, 4, 2)
+DRYRUN_RTOL = 0.10
+DRYRUN_STEPS = 4
 BUILD = Path(__file__).resolve().parent / "build"
 
 
@@ -1650,6 +1685,101 @@ def train_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def dryrun_phase() -> None:
+    """Phase 24: the dry-run's records of DRYRUN_CELLS on both
+    production meshes, each peak against the card's memory."""
+    from repro_torch.launch.dryrun import lower_cell
+    props = torch.cuda.get_device_properties(0)
+    t_phase = time.perf_counter()
+    phase("dryrun", card=props.name, memory_bytes=props.total_memory)
+    for arch, shape in DRYRUN_CELLS:
+        for multi_pod in (False, True):
+            rec = lower_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+            pd = rec["per_device"]
+            check(rec["status"] == "ok" and rec["flops"] > 0,
+                  f"dryrun: {arch} x {shape}: {rec}")
+            phase("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+                  peak_gb=pd["peak_bytes"] / 1e9,
+                  argument_gb=pd["argument_bytes"] / 1e9,
+                  temp_gb=pd["temp_bytes"] / 1e9,
+                  output_gb=pd["output_bytes"] / 1e9, flops=rec["flops"],
+                  trace_s=rec["trace"]["seconds"],
+                  units=json.dumps(rec["trace"]["units"]),
+                  rows=rec["trace"]["rows"],
+                  microbatches=rec["trace"]["microbatches"],
+                  fits=pd["peak_bytes"] <= props.total_memory)
+    phase("dryrun", cells=2 * len(DRYRUN_CELLS),
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def dryrun_check_phase(smi: str) -> None:
+    """Phase 25: the records of DRYRUN_CHECK_CELLS and of
+    DRYRUN_TRAIN_CHECK on the 1 x 1 host mesh against real steps on the
+    card."""
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.launch.dryrun import cell_record, real_step
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    arch, layers, seq, batch, mb = DRYRUN_TRAIN_CHECK
+    cells = [(get_config(a), next(s for s in SHAPES if s.name == name), 1)
+             for a, name in DRYRUN_CHECK_CELLS]
+    cells.append((get_config(arch).scaled(n_layers=layers),
+                  ShapeSpec(f"train_{seq}", seq, batch, "train"), mb))
+    for cfg, shape, microbatches in cells:
+        t_cell = time.perf_counter()
+        rec = cell_record(cfg, shape, mesh, microbatches=microbatches)
+        pd = rec["per_device"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        real = real_step(cfg, shape, microbatches=microbatches,
+                         steps=DRYRUN_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"{cfg.name} ({cfg.n_layers} layers) x {shape.name}"
+        check(rec["status"] == "ok" and
+              rec["trace"]["microbatches"] == microbatches,
+              f"dryrun_check: {name}: {rec}")
+        check(real["argument_bytes"] == pd["argument_bytes"],
+              f"dryrun_check: {name}: predicted argument bytes "
+              f"{pd['argument_bytes']} != allocated "
+              f"{real['argument_bytes']}")
+        rel = (pd["peak_bytes"] - real["peak_bytes"]) / real["peak_bytes"]
+        check(abs(rel) <= DRYRUN_RTOL,
+              f"dryrun_check: {name}: predicted peak {pd['peak_bytes']} "
+              f"against measured {real['peak_bytes']} ({rel:+.4f})")
+        temp_rel = (pd["temp_bytes"] - real["temp_bytes"]) / \
+            real["temp_bytes"]
+        check(abs(temp_rel) <= DRYRUN_RTOL,
+              f"dryrun_check: {name}: predicted temp {pd['temp_bytes']} "
+              f"against measured {real['temp_bytes']} ({temp_rel:+.4f})")
+        if shape.kind == "decode":
+            check(all(0 <= t < cfg.vocab_size for step in real["outputs"]
+                      for t in step),
+                  f"dryrun_check: tokens {real['outputs']}")
+        else:
+            check(all(np.isfinite(loss) for step in real["outputs"]
+                      for loss in step),
+                  f"dryrun_check: losses {real['outputs']}")
+        bound = pd["argument_bytes"] / HBM_BYTES_PER_S * 1e3
+        phase("dryrun_check", arch=cfg.name, layers=cfg.n_layers,
+              shape=shape.name, mesh=rec["mesh"],
+              microbatches=microbatches,
+              units=json.dumps(rec["trace"]["units"]),
+              argument_bytes=pd["argument_bytes"],
+              allocated_bytes=real["argument_bytes"],
+              predicted_peak_bytes=pd["peak_bytes"],
+              measured_peak_bytes=real["peak_bytes"], peak_rel_err=rel,
+              predicted_temp_bytes=pd["temp_bytes"],
+              measured_temp_bytes=real["temp_bytes"],
+              temp_rel_err=temp_rel, flops=rec["flops"],
+              trace_s=rec["trace"]["seconds"], step_ms=real["ms"],
+              step_ms_each=json.dumps(real["step_ms"]),
+              outputs=json.dumps(real["outputs"]),
+              bytes_bound_ms=bound, bound_share=bound / real["ms"],
+              card=json.dumps(smi),
+              seconds=round(time.perf_counter() - t_cell, 1))
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -2086,10 +2216,14 @@ def run_phases() -> None:
     train_overfit_phase(dev)
     train_resume_phase(dev)
     train_phase(dev)
+
+    # ---------------------------------------------- 24-25. the dry-run ----
+    dryrun_phase()
+    dryrun_check_phase(smi)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 24. kernels line ----
+    # ------------------------------------------------- 26. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

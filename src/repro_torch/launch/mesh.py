@@ -5,8 +5,6 @@ The port's copy of the host half of ``repro.launch.mesh``. A
 devices, of ``AbstractMesh``): axis names, their sizes, and the devices
 laid out over them. The partition rules of
 :mod:`repro_torch.train.sharding` read only the names and sizes.
-``make_production_mesh`` (the 256- and 512-chip meshes of the dry-run)
-is not ported yet.
 
 Functions, not module-level constants: importing this module touches no
 device.
@@ -18,7 +16,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["Mesh", "abstract_mesh", "make_host_mesh", "dp_axes", "tp_axis"]
+__all__ = ["Mesh", "abstract_mesh", "make_production_mesh", "make_host_mesh",
+           "dp_axes", "tp_axis"]
 
 
 @dataclass(frozen=True)
@@ -47,6 +46,14 @@ def abstract_mesh(axis_sizes: Tuple[int, ...],
     """A :class:`Mesh` without devices (the reference's
     ``AbstractMesh``)."""
     return Mesh(tuple(axis_sizes), tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry-run's meshes, without devices: 16 x 16 ("data", "model"),
+    256 chips, or 2 x 16 x 16 ("pod", "data", "model"), 512 chips."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(model_parallel: int = 1) -> Mesh:

@@ -6,9 +6,9 @@ parameters (the reference's layout: ``embed``, ``final_norm``,
 ``encoder``, ``patch_proj``). Every linear of the PIM scopes runs through
 the :class:`repro_torch.engine.Engine` the model is built on.
 """
-from .model import Model, build_model
+from .model import Model, build_model, input_specs
 from .transformer import (decode_step, forward, init_decode_state,
                           init_params, stack_plan)
 
-__all__ = ["Model", "build_model", "forward", "decode_step",
+__all__ = ["Model", "build_model", "input_specs", "forward", "decode_step",
            "init_params", "init_decode_state", "stack_plan"]

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.pim.quant import ragged_dot
@@ -242,6 +243,20 @@ def moe_ffn(cfg: ModelConfig, p, x3: torch.Tensor, *,
                           engine=engine).reshape(b, s, d)
 
 
+def _expert_counts(flat_e: torch.Tensor, n_experts: int):
+    """Rows routed to each expert: (E,) int32 counts of ``flat_e``.
+
+    A fake tensor (a shape-only trace, :mod:`repro_torch.launch.dryrun`)
+    holds no routing to count, so the trace takes it balanced: T*k // E
+    rows an expert, the remainder one each to the first experts. Dropless
+    dispatch computes every routed pair whatever the routing, so the
+    FLOPs are those of any real routing; real tensors are counted."""
+    if is_fake(flat_e):
+        n, rest = divmod(flat_e.numel(), n_experts)
+        return [n + (i < rest) for i in range(n_experts)]
+    return torch.bincount(flat_e, minlength=n_experts).to(torch.int32)
+
+
 def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
                    engine=None) -> torch.Tensor:
     """Dropless dispatch: sort token-expert pairs by expert (stable), then
@@ -263,7 +278,7 @@ def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
     flat_t = torch.arange(t, device=x2.device).repeat_interleave(e.top_k)
     order = torch.argsort(flat_e, stable=True)
     st, sg = flat_t[order], gate.reshape(-1)[order]
-    counts = torch.bincount(flat_e, minlength=e.n_experts).to(torch.int32)
+    counts = _expert_counts(flat_e, e.n_experts)
 
     xs = x2[st]                                            # (T*k, d)
     h = _pim_ragged(cfg, xs, p["we1"], counts, engine=engine)

@@ -3,13 +3,13 @@
 The port's copy of ``repro.models.model``. A :class:`Model` is bound to
 one :class:`repro_torch.engine.Engine` and lives on that engine's device:
 its PIM-scope projections run through the engine, and its parameters and
-decode states are made there. ``input_specs`` (the dry-run's) is not
-ported yet.
+decode states are made there. :func:`input_specs` gives the dry-run's
+shape stand-ins for a shape cell's inputs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 
 from . import transformer as T
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "input_specs"]
 
 
 @dataclass(frozen=True)
@@ -98,3 +98,29 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
         return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev)
 
     return Model(cfg, engine, dev, init, loss, fwd, decode, init_state)
+
+
+def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of an assigned ``shape``
+    (:class:`repro_torch.configs.ShapeSpec`): ``device="meta"`` tensors,
+    which carry shape and dtype and allocate nothing. The reference's
+    keys, shapes and dtypes: ``tokens``/``labels`` (B, S) int32 for
+    train, ``tokens`` for prefill, with ``patches`` (vlm) or ``frames``
+    (encdec) in ``dtype``; ``token``/``position`` (B, 1) int32 for
+    decode."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind == "decode":   # one new token against a seq_len cache
+        return {"token": spec((b, 1), torch.int32),
+                "position": spec((b, 1), torch.int32)}
+    out = {"tokens": spec((b, s), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = spec((b, s), torch.int32)
+    if cfg.family == "vlm":
+        out["patches"] = spec((b, cfg.n_patches, cfg.d_model), dtype)
+    if cfg.family == "encdec":
+        out["frames"] = spec((b, cfg.enc_frames, cfg.d_model), dtype)
+    return out

@@ -91,11 +91,15 @@ def _at(tree, i: int):
 
 def _put(stacked, i: int, new) -> None:
     """Write ``new`` into unit ``i`` of ``stacked`` in place; a leaf that
-    already is that slot (a cache written in place) is left alone."""
+    already is that slot (a cache written in place) is left alone. The
+    slot is recognised by its storage, offset, shape and strides, never
+    by a data pointer, which a fake tensor does not have."""
     def one(dst, src):
         slot = dst[i]
-        if not (slot.data_ptr() == src.data_ptr()
-                and slot.shape == src.shape):
+        if not (slot.untyped_storage() is src.untyped_storage()
+                and slot.storage_offset() == src.storage_offset()
+                and slot.shape == src.shape
+                and slot.stride() == src.stride()):
             slot.copy_(src)
     tree_map(one, stacked, new)
 

@@ -91,7 +91,9 @@ def qmatmul_exact(xq: QTensor, wq: QTensor) -> torch.Tensor:
 
 
 def _counts(counts: Union[torch.Tensor, Sequence[int]]) -> list:
-    return [int(c) for c in torch.as_tensor(counts).tolist()]
+    if isinstance(counts, torch.Tensor):
+        counts = counts.tolist()
+    return [int(c) for c in counts]
 
 
 def ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor,

@@ -34,7 +34,7 @@ from repro_torch.tree import DictKey, tree_map_with_path
 
 __all__ = ["param_shardings", "batch_shardings", "state_shardings",
            "zero1_shardings", "logits_sharding", "spec_for_leaf",
-           "zero1_spec", "abstract_mesh"]
+           "zero1_spec", "shard_shape", "abstract_mesh"]
 
 Spec = Tuple[Any, ...]
 
@@ -208,3 +208,22 @@ def zero1_shardings(mesh: Mesh, params: Any):
 def logits_sharding(mesh: Mesh) -> Spec:
     """(batch, sequence, vocab) logits: batch over the data axes."""
     return (_dp(mesh), None, None)
+
+
+def shard_shape(mesh: Mesh, shape: Tuple[int, ...], spec: Spec
+                ) -> Tuple[int, ...]:
+    """The shape of one device's shard of a ``shape`` array under
+    ``spec`` on ``mesh`` (``NamedSharding.shard_shape``): each dimension
+    over the product of its axes' sizes. Raises when one does not divide
+    (the rules above never give such a spec)."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        n = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n *= _axis_size(mesh, a)
+        if dim % n:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                             f"split {n} ways under {spec}")
+        out.append(dim // n)
+    return tuple(out)

@@ -83,14 +83,15 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
             if acc is None:     # 0 + g: the first sum is g itself
                 total = loss
                 acc = [g.to(torch.float32) for g in grads]
-                continue
-            total = total + loss
-            # Out of place, one leaf at a time: autograd may hand one
-            # tensor to two leaves, or an expanded one, so its outputs
-            # are not written; each old sum is freed as it is replaced.
-            for k, g in enumerate(grads):
-                acc[k] = acc[k] + g
-            del grads
+            else:
+                total = total + loss
+                # Out of place, one leaf at a time: autograd may hand one
+                # tensor to two leaves, or an expanded one, so its
+                # outputs are not written; each old sum is freed as it
+                # is replaced.
+                for k in range(len(acc)):
+                    acc[k] = acc[k] + grads[k]
+            del grads   # not held through the next microbatch's backward
         inv = 1.0 / microbatches
         for k in range(len(acc)):
             acc[k] = acc[k] * inv

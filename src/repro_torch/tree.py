@@ -93,21 +93,27 @@ def _child(t, key):
     return t[key.idx]
 
 
+# The walks below recurse through module-level functions: a nested
+# function that calls itself is a reference cycle, which would hold what
+# it closes over (``fn``, the flattened leaves) until the garbage
+# collector runs, and a train step's gradients with them.
+def _map(fn: Callable, path: tuple, t, rs: list):
+    if t is None:
+        return None
+    if not _is_node(t):
+        return fn(path, t, *rs)
+    kids = {}
+    for key, child in _children(t):
+        kids[key] = _map(fn, path + (key,), child,
+                         [_child(r, key) for r in rs])
+    return _rebuild(t, kids)
+
+
 def tree_map_with_path(fn: Callable, tree, *rest):
     """Map ``fn(path, leaf, *others)`` over the leaves of ``tree``;
     ``rest`` are trees of the same structure whose leaves are passed
     alongside. ``None`` stays ``None``."""
-    def go(path, t, rs):
-        if t is None:
-            return None
-        if not _is_node(t):
-            return fn(path, t, *rs)
-        kids = {}
-        for key, child in _children(t):
-            kids[key] = go(path + (key,), child,
-                           [_child(r, key) for r in rs])
-        return _rebuild(t, kids)
-    return go((), tree, list(rest))
+    return _map(fn, (), tree, list(rest))
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -123,17 +129,18 @@ def tree_flatten_with_path(tree, is_leaf: Optional[Callable] = None
     """``[(path, leaf), ...]`` in JAX's order, and the tree's structure;
     a subtree for which ``is_leaf`` is true counts as one leaf."""
     out: List[Tuple[tuple, Any]] = []
-
-    def go(path, t):
-        if t is None:
-            return None
-        if not _is_node(t) or (is_leaf is not None and is_leaf(t)):
-            out.append((path, t))
-            return _LEAF
-        return _rebuild(t, {key: go(path + (key,), child)
-                            for key, child in _children(t)})
-    skeleton = go((), tree)
+    skeleton = _flatten((), tree, is_leaf, out)
     return out, TreeDef(skeleton, len(out))
+
+
+def _flatten(path: tuple, t, is_leaf: Optional[Callable], out: list):
+    if t is None:
+        return None
+    if not _is_node(t) or (is_leaf is not None and is_leaf(t)):
+        out.append((path, t))
+        return _LEAF
+    return _rebuild(t, {key: _flatten(path + (key,), child, is_leaf, out)
+                        for key, child in _children(t)})
 
 
 def tree_flatten(tree) -> Tuple[list, "TreeDef"]:

@@ -7,7 +7,8 @@ unpacked through K2) against the plain-int reference tokens, the
 K2, a disk-loaded cache entry run through K1, the model zoo (two smoke
 models and a full-width gemma2-9b block) against the CPU, and training
 (two smoke models' train steps against the CPU, a checkpoint restored
-onto the card, the launcher's default device). Every test skips
+onto the card, the launcher's default device), and the dry-run's
+prediction of a decode cell's peak against a real step. Every test skips
 without a card; on one,
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it runs where JAX is not installed)."""
@@ -726,3 +727,51 @@ def test_train_launcher_defaults_to_card(card):
                          "--microbatches", "2"])
     assert len(run.losses) == 3 and all(np.isfinite(run.losses))
     assert all(t.device.type == "cuda" for t in tree_leaves(run.state[0]))
+
+
+def _dryrun_against_card(cfg, shape, microbatches=1):
+    """A record on the card's own 1 x 1 mesh against real steps: exact
+    argument bytes, peak and temp bytes each within 10%."""
+    import gc
+    from repro_torch.launch.dryrun import cell_record, real_step
+    from repro_torch.launch.mesh import make_host_mesh
+    rec = cell_record(cfg, shape, make_host_mesh(),
+                      microbatches=microbatches)
+    assert rec["mesh"] == "1x1" and rec["status"] == "ok"
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = real_step(cfg, shape, microbatches=microbatches, steps=3)
+    pd = rec["per_device"]
+    assert real["argument_bytes"] == pd["argument_bytes"]
+    assert abs(pd["peak_bytes"] - real["peak_bytes"]) <= \
+        0.10 * real["peak_bytes"]
+    assert abs(pd["temp_bytes"] - real["temp_bytes"]) <= \
+        0.10 * real["temp_bytes"]
+    return rec, real
+
+
+def test_dryrun_predicts_card_peak(card):
+    """The dry-run's record of rwkv6-7b x long_500k, cut to 8 of its 32
+    layers at full width (a shorter test; ``chip_smoke.py`` checks the
+    whole depth), on the card's own 1 x 1 mesh: its argument bytes equal
+    the bytes of the parameters, states and inputs a real decode builds
+    on the card, and its peak and temp bytes are each within 10% of the
+    measured ones."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg = get_config("rwkv6-7b").scaled(n_layers=8)
+    shape = next(s for s in SHAPES if s.name == "long_500k")
+    _dryrun_against_card(cfg, shape)
+
+
+def test_dryrun_predicts_card_train_peak(card):
+    """A train record: qwen3-8b at full width cut to 4 layers (its units
+    traced at 2 and 3 and extrapolated), 2 sequences of 512 tokens in 2
+    microbatches, bf16 parameters and float32 AdamW state, against real
+    ``make_train_step`` steps on the card: exact argument bytes, peak and
+    temp bytes each within 10%."""
+    from repro_torch.configs import ShapeSpec, get_config
+    cfg = get_config("qwen3-8b").scaled(n_layers=4)
+    rec, real = _dryrun_against_card(
+        cfg, ShapeSpec("train_512", 512, 2, "train"), microbatches=2)
+    assert rec["trace"]["units"] == [2, 3]
+    assert np.all(np.isfinite(real["outputs"]))

@@ -91,8 +91,9 @@ def test_lazy_imports_load_no_reference_package():
 
 
 def test_default_entry_points_need_cuda():
-    """get_engine() and the default backend run on the card; with no
-    CUDA they raise instead of running on the CPU."""
+    """get_engine(), the default backend and the dry-run's default
+    device run on the card; with no CUDA they raise instead of running
+    on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default engine is valid here")
     from repro_torch.engine import Engine, TorchBackend, get_engine
@@ -103,6 +104,9 @@ def test_default_entry_points_need_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchBackend()
     assert TorchBackend(device="cpu").device == "cpu"
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "rwkv6-7b", "--shape", "long_500k"])
 
 
 def test_kernel_build_is_lazy():

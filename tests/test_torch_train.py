@@ -105,6 +105,31 @@ def test_tree_map_rebuilds_namedtuples_and_keeps_none():
     assert treedef.num_leaves == 4
 
 
+@pytest.mark.parametrize("walk", ["flatten", "map"])
+def test_tree_walks_leave_no_reference_cycle(walk):
+    """A leaf that a walk saw is freed as soon as the caller drops it,
+    with the garbage collector off: the walks hold no reference cycle
+    (which would keep a train step's gradients alive into the next)."""
+    import gc
+    import weakref
+    x = torch.ones(4)
+    seen = weakref.ref(x)
+    tree = {"a": [x, None], "b": (torch.zeros(1),)}
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        if walk == "flatten":
+            leaves, _ = tree_flatten(tree)
+            del leaves
+        else:
+            tree_map(lambda t, held=x: t, tree)   # fn holds x
+        del tree, x
+        assert seen() is None
+    finally:
+        if was:
+            gc.enable()
+
+
 # ------------------------------------------------------------- gradients ----
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_gradients_match_reference(arch):
