@@ -160,8 +160,29 @@ and raises on any failure. Phases, one line each:
     warm-up allocated above what was live when it began; the step's
     milliseconds (CUDA events) against its bytes bound (the argument
     bytes read once at 3.35 TB/s);
-26. one JSON line describing each kernel;
-27. ``{"ok": true, "device": {...}}`` as the last line.
+26. ``train_sharded``: the training launcher under ``python -m
+    torch.distributed.run --standalone --nproc-per-node 2`` with
+    ``--dist-backend gloo``, both ranks on this one card (gloo's
+    collectives on CUDA tensors first probed, ``python -m
+    repro_torch.dist``: every collective the port calls must take CUDA
+    tensors), at qwen3-8b's published width, 4 x 1,024 tokens in 2
+    microbatches, float32, 3 steps, on the (data, model) meshes (1, 2)
+    (tensor parallel, 8 layers) and (2, 1) (data parallel, ZeRO-1, cut
+    to 4 layers), each against a one-rank run of the same launcher at
+    that depth in this process: losses, lr and grad norms within 1e-5
+    relative (the CPU tests' measure), each rank's placed
+    parameter and AdamW bytes equal to the dry-run's
+    ``train_state_bytes`` for that mesh (exact), each rank's peak
+    (``max_memory_allocated`` in its own process) beside the one-rank
+    run's and below it; step seconds printed as what they are: two ranks
+    sharing one card, every collective through gloo on the host;
+27. ``elastic_card``: ``repro_torch.launch.elastic`` under
+    ``torch.distributed.run`` with 4 ranks on the card: deepseek-7b smoke
+    on (2, 2) for 4 steps, checkpoint, 2 survivors re-meshed to (1, 2),
+    restored, 3 more steps, against the card's uninterrupted (2, 2) run
+    (1e-5 relative);
+28. one JSON line describing each kernel;
+29. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
@@ -169,7 +190,7 @@ replays and each run of 19, and read just after (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
 12's timing, 14, 15's group tables and 16 do not count (17, 18 and
-20-25 launch no kernel: the model path takes the integer products with
+20-27 launch no kernel: the model path takes the integer products with
 torch matmuls, as the reference takes them in XLA, training runs the
 float path, whose gradients the reference takes in XLA too, and the
 dry-run traces fake tensors and checks itself on the float path). The
@@ -323,6 +344,19 @@ DRYRUN_CHECK_CELLS = (("rwkv6-7b", "long_500k"),
 DRYRUN_TRAIN_CHECK = ("qwen3-8b", 8, 1024, 4, 2)
 DRYRUN_RTOL = 0.10
 DRYRUN_STEPS = 4
+# The sharded training slice: the launcher on two ranks sharing the card
+# (gloo) at qwen3-8b's published width, against one rank, as ((data,
+# model), layers). ZeRO-1 on (2, 1) moves every gradient and parameter
+# through gloo each step (about 50 s a step at 8 layers on the shared
+# card, PERF.md section 6): it runs cut to 4 layers.
+TRAIN_SHARDED_MESHES = (((1, 2), 8), ((2, 1), 4))
+TRAIN_SHARDED_ARGS = ["--arch", "qwen3-8b", "--steps", "3", "--seq-len",
+                      "1024", "--global-batch", "4", "--microbatches", "2"]
+TRAIN_SHARDED_LOSS_RTOL = 1e-5
+TRAIN_SHARDED_NORM_RTOL = 1e-5
+RANKS_TIMEOUT_S = 420
+ELASTIC_ARGS = ["--arch", "deepseek-7b", "--smoke", "--model-parallel",
+                "2", "--survivors", "2", "--steps", "4", "--more", "3"]
 BUILD = Path(__file__).resolve().parent / "build"
 
 
@@ -1780,6 +1814,173 @@ def dryrun_check_phase(smi: str) -> None:
               seconds=round(time.perf_counter() - t_cell, 1))
 
 
+def run_ranks(nproc: int, module: str, args: list,
+              timeout: float = RANKS_TIMEOUT_S) -> float:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc -m module args`` from the repo root with ``src`` on the path,
+    in a session of its own: killed with all its ranks if it outlives
+    ``timeout``; raises unless it exits 0. Returns its wall seconds."""
+    import signal
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", module] + args
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(root), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{module} on {nproc} ranks outlived {timeout} s")
+    check(proc.returncode == 0,
+          f"{module} on {nproc} ranks exited {proc.returncode}:\n"
+          f"{out[-2000:]}\n{err[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def gloo_cuda_phase() -> dict:
+    """Which collectives gloo takes for CUDA tensors in this torch, two
+    ranks on the card: every one the port calls
+    (``repro_torch.dist.COLLECTIVES``) must be, since the port stages
+    none through the host by hand."""
+    from repro_torch import dist
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.dist"], cwd=str(root),
+        env=env, capture_output=True, text=True, timeout=180)
+    check(res.returncode == 0, f"gloo_cuda: {res.stderr[-3000:]}")
+    found = json.loads(res.stdout.strip().splitlines()[-1])
+    refused = {k: v for k, v in found["gloo_cuda"].items() if v != "ok"}
+    check(set(found["gloo_cuda"]) == set(dist.COLLECTIVES) and not refused,
+          f"gloo_cuda: gloo refuses CUDA tensors for {refused}")
+    phase("gloo_cuda", torch=found["torch"],
+          direct=",".join(sorted(found["gloo_cuda"])), staged="none")
+    return found
+
+
+def one_rank_run(args: list, layers: int) -> tuple:
+    """The launcher on one rank in this process: (TrainRun, peak bytes,
+    wall seconds)."""
+    from repro_torch.launch import train as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launcher.main(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run.state = ()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, peak, wall
+
+
+def train_sharded_phase(smi: str) -> None:
+    """Phase 26: the launcher on meshes of two ranks sharing the card
+    against one rank in this process (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import train_state_bytes
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.model import abstract_params
+    t_phase = time.perf_counter()
+    for (dp, tp), layers in TRAIN_SHARDED_MESHES:
+        args = TRAIN_SHARDED_ARGS + ["--override",
+                                     json.dumps({"n_layers": layers})]
+        cfg = get_config("qwen3-8b").scaled(n_layers=layers)
+        whole = abstract_params(cfg, torch.float32)
+
+        def count(mesh):
+            return train_state_bytes(cfg, abstract_mesh(mesh, ("data",
+                                                               "model")),
+                                     whole)
+        one, one_peak, one_s = one_rank_run(args, layers)
+        check(one.placed_bytes == [count((1, 1))],
+              f"train_sharded: one rank placed {one.placed_bytes}, the "
+              f"dry-run counts {count((1, 1))}")
+        check(len(one.losses) == 3 and all(np.isfinite(one.losses)),
+              f"train_sharded: one-rank losses {one.losses}")
+        phase("train_sharded", mesh="1x1", ranks=1, layers=layers,
+              losses=json.dumps(one.losses),
+              grad_norms=json.dumps(one.grad_norms),
+              lrs=json.dumps(one.lrs), placed_bytes=one.placed_bytes[0],
+              peak_bytes=one_peak, step_s=json.dumps(one.step_s),
+              wall_s=round(one_s, 1))
+        summary = BUILD / f"train_sharded_{dp}x{tp}.json"
+        wall = run_ranks(2, "repro_torch.launch.train", args + [
+            "--model-parallel", str(tp), "--dist-backend", "gloo",
+            "--summary", str(summary)])
+        got = json.loads(summary.read_text())
+        summary.unlink()
+        name = f"{dp}x{tp}"
+        check(got["mesh"] == {"data": dp, "model": tp},
+              f"train_sharded: mesh {got['mesh']}")
+        errs = {}
+        for key, want, rtol in (
+                ("losses", one.losses, TRAIN_SHARDED_LOSS_RTOL),
+                ("lrs", one.lrs, TRAIN_SHARDED_LOSS_RTOL),
+                ("grad_norms", one.grad_norms, TRAIN_SHARDED_NORM_RTOL)):
+            errs[key] = max(abs(a - b) / abs(b)
+                            for a, b in zip(got[key], want))
+            check(len(got[key]) == len(want) and errs[key] <= rtol,
+                  f"train_sharded {name}: {key} {got[key]} against one "
+                  f"rank's {want} (relative {errs[key]} > {rtol})")
+        check(got["placed_bytes"] == [count((dp, tp))] * 2,
+              f"train_sharded {name}: placed {got['placed_bytes']}, the "
+              f"dry-run counts {count((dp, tp))}")
+        check(all(p < one_peak for p in got["peak_bytes"]),
+              f"train_sharded {name}: rank peaks {got['peak_bytes']} not "
+              f"below one rank's {one_peak}")
+        phase("train_sharded", mesh=name, ranks=2, layers=layers,
+              backend="gloo (both ranks on one card, every collective "
+                      "through the host)",
+              losses=json.dumps(got["losses"]),
+              loss_rel_err=errs["losses"],
+              grad_norm_rel_err=errs["grad_norms"],
+              lr_rel_err=errs["lrs"],
+              placed_bytes=json.dumps(got["placed_bytes"]),
+              spec_count=count((dp, tp)),
+              peak_bytes=json.dumps(got["peak_bytes"]),
+              one_rank_peak=one_peak,
+              step_s_shared_card=json.dumps(got["step_s"]),
+              wall_s=round(wall, 1), card=json.dumps(smi))
+    phase("train_sharded", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def elastic_card_phase() -> None:
+    """Phase 27: the elastic schedule on 4 ranks sharing the card."""
+    t_phase = time.perf_counter()
+    out = BUILD / "elastic_card.json"
+    ckpt = BUILD / "elastic_card_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        wall = run_ranks(4, "repro_torch.launch.elastic", ELASTIC_ARGS + [
+            "--ckpt-dir", str(ckpt), "--out", str(out)])
+        got = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        out.unlink(missing_ok=True)
+    check(got["mesh1"] == {"data": 2, "model": 2}
+          and got["mesh2"] == {"data": 1, "model": 2},
+          f"elastic_card: meshes {got['mesh1']} -> {got['mesh2']}")
+    check(got["restored_step"] == 4 and got["l1"] == got["r1"],
+          f"elastic_card: {got}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(got["l2"], got["r2"]))
+    check(len(got["l2"]) == 3 and err <= TRAIN_SHARDED_LOSS_RTOL,
+          f"elastic_card: resumed {got['l2']} against uninterrupted "
+          f"{got['r2']} ({err})")
+    phase("elastic_card", arch="deepseek-7b smoke", ranks=4, mesh="2x2",
+          survivors=2, remesh="1x2", l1=json.dumps(got["l1"]),
+          l2=json.dumps(got["l2"]), r2=json.dumps(got["r2"]),
+          rel_err=err, wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -2220,10 +2421,15 @@ def run_phases() -> None:
     # ---------------------------------------------- 24-25. the dry-run ----
     dryrun_phase()
     dryrun_check_phase(smi)
+
+    # ------------------------------------- 26-27. sharded training ----
+    gloo_cuda_phase()
+    train_sharded_phase(smi)
+    elastic_card_phase()
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 26. kernels line ----
+    # ------------------------------------------------- 28. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

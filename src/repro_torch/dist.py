@@ -1,0 +1,462 @@
+"""Process groups and collectives for the port's sharded runs.
+
+What ``jax.make_mesh`` and GSPMD give the reference, made explicit: one
+process a rank, the ranks of a mesh laid out row-major over its axes (as
+``jax.make_mesh`` lays out devices), one process group for every set of
+mesh axes, and collectives called by hand where GSPMD would insert them.
+
+* :func:`init_distributed` starts the process group from the standard
+  ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` environment
+  (``python -m torch.distributed.run``), or from a ``FileStore`` (tests).
+  The caller names the backend, and nothing here switches it: ``nccl``
+  when every rank has a card of its own, ``gloo`` on the CPU and when
+  ranks share one card. The group has a timeout, so one rank's exception
+  ends the run with an error rather than a hang.
+* :class:`MeshComm` is one rank's view of a mesh: its coordinates and a
+  :class:`ParallelAxis` (group, size, this rank's index) for every set of
+  axes. :func:`build_mesh_comm` makes the groups.
+* :func:`mesh_axis` gives this rank's place on a set of a mesh's axes;
+  the model code takes the mesh it shards over as an argument.
+* The collectives: :func:`all_reduce`, :func:`all_reduce_max`,
+  :func:`all_gather` and :func:`reduce_scatter` (along any dimension),
+  :func:`broadcast`, and the autograd-aware forms of Megatron's layout,
+  which is what GSPMD inserts for the partition rules:
+  :func:`copy_to_parallel` (identity forward, all-reduce backward: into
+  a column-parallel region), :func:`reduce_from_parallel` (all-reduce
+  forward, identity backward: out of a row-parallel one) and
+  :func:`gather_from_parallel` (all-gather forward, reduce-scatter
+  backward). A collective over a ``None`` group (an axis of size 1) is
+  the identity.
+
+Gloo takes CUDA tensors for every collective used here in the torch of
+the card's machine (2.11; :func:`probe_gloo_cuda`, ``python -m
+repro_torch.dist``), so nothing is staged by hand; gloo itself moves
+every byte through host memory and the loopback, so a gloo step's time
+is not a multi-card time.
+
+Imports no JAX and nothing of the reference package.
+"""
+from __future__ import annotations
+
+import datetime
+import itertools
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, FrozenSet, Iterable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
+           "is_initialized", "world_size", "rank", "local_rank",
+           "local_device", "ParallelAxis", "MeshComm", "build_mesh_comm",
+           "mesh_axis", "all_reduce",
+           "all_reduce_by_axes", "all_reduce_max", "all_gather",
+           "reduce_scatter", "broadcast", "broadcast_int", "all_gather_ints",
+           "barrier", "copy_to_parallel", "reduce_from_parallel",
+           "gather_from_parallel"]
+
+DEFAULT_TIMEOUT_S = 300.0
+
+# The collectives this module calls; gloo must take CUDA tensors for
+# each (:func:`probe_gloo_cuda`).
+COLLECTIVES = ("all_reduce", "all_reduce_max", "broadcast", "all_gather",
+               "reduce_scatter", "barrier")
+
+# The single-tensor all-gather and reduce-scatter: torch 2.13's names,
+# or the earlier ``*_tensor`` ones where a torch has only those (2.13
+# warns that they are deprecated).
+_all_gather_single = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    getattr(dist, "reduce_scatter_tensor", None)
+
+
+# ------------------------------------------------------------- set-up ----
+def init_distributed(backend: str, *, rank: Optional[int] = None,
+                     world_size: Optional[int] = None,
+                     store_path: Optional[str] = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+    """Start the default process group with ``backend`` (``"nccl"`` or
+    ``"gloo"``) and return this process's rank.
+
+    With ``store_path`` the ranks meet in a ``FileStore`` there (``rank``
+    and ``world_size`` given); otherwise the environment that
+    ``torch.distributed.run`` sets names them. Raises if a group is
+    already running, if the backend is neither, or if ``nccl`` is asked
+    for without CUDA."""
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed process group is already "
+                           "running in this process")
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("the nccl backend needs CUDA; use gloo on the "
+                           "CPU")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if store_path is not None:
+        if rank is None or world_size is None:
+            raise ValueError("a FileStore needs rank and world_size")
+        store = dist.FileStore(store_path, world_size)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world_size, timeout=timeout)
+    else:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                               "MASTER_PORT") if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"no {', '.join(missing)} in the "
+                               f"environment: run under python -m "
+                               f"torch.distributed.run")
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=timeout)
+    if backend == "nccl":
+        torch.cuda.set_device(local_device("cuda"))
+    return dist.get_rank()
+
+
+def is_initialized() -> bool:
+    """True when a default process group is running."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """Ranks of the default group (1 without one)."""
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank (0 without a group)."""
+    return dist.get_rank() if is_initialized() else 0
+
+
+def local_rank() -> int:
+    """``LOCAL_RANK`` from the environment, else the rank (one host)."""
+    return int(os.environ.get("LOCAL_RANK", rank()))
+
+
+def local_device(kind: str) -> torch.device:
+    """This rank's device of ``kind``: ``cuda:LOCAL_RANK % device_count``
+    (ranks share the cards round-robin, all of them ``cuda:0`` on one
+    card), or the CPU."""
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind != "cuda":
+        raise ValueError(f"device kind {kind!r}")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+# --------------------------------------------------------------- mesh ----
+@dataclass(frozen=True)
+class ParallelAxis:
+    """One rank's place on a set of mesh axes: the process group over
+    them (``None`` when they hold one rank), their size and this rank's
+    index (row-major over the axes, which is its rank in the group)."""
+
+    group: Any
+    size: int
+    index: int
+
+
+@dataclass(frozen=True, eq=False)
+class MeshComm:
+    """This rank's view of a mesh: its global ``rank``, its ``coords``
+    over ``axis_names`` and a :class:`ParallelAxis` for every non-empty
+    set of axes (``axes``, keyed by frozenset of names)."""
+
+    rank: int
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    axes: Dict[FrozenSet[str], ParallelAxis]
+
+    def axis(self, names: Iterable[str]) -> ParallelAxis:
+        """The :class:`ParallelAxis` over ``names`` (names not on the
+        mesh are ignored; none left is a size-1 axis)."""
+        key = frozenset(n for n in names if n in self.axis_names)
+        if not key:
+            return ParallelAxis(None, 1, 0)
+        return self.axes[key]
+
+
+def _row_major(sizes: Sequence[int], coords: Sequence[int]) -> int:
+    idx = 0
+    for n, c in zip(sizes, coords):
+        idx = idx * n + c
+    return idx
+
+
+def build_mesh_comm(axis_sizes: Sequence[int], axis_names: Sequence[str],
+                    ranks: Sequence[int], *, local_sync: bool = False
+                    ) -> Optional[MeshComm]:
+    """Make the process groups of a mesh over ``ranks`` (global ranks,
+    row-major over the axes) and return this rank's :class:`MeshComm`,
+    or None when this rank is not on the mesh.
+
+    Every rank of the default group must call this with the same
+    arguments, in the same order with the other group-making calls,
+    unless ``local_sync``: then only the mesh's ranks call it (the
+    survivors of an elastic re-mesh)."""
+    axis_sizes = tuple(int(n) for n in axis_sizes)
+    axis_names = tuple(axis_names)
+    ranks = [int(r) for r in ranks]
+    total = 1
+    for n in axis_sizes:
+        total *= n
+    if len(ranks) != total:
+        raise ValueError(f"{len(ranks)} ranks for a mesh of {axis_sizes}")
+    me = dist.get_rank()
+    coords = None
+    if me in ranks:
+        flat = ranks.index(me)
+        coords = []
+        for n in reversed(axis_sizes):
+            coords.append(flat % n)
+            flat //= n
+        coords = tuple(reversed(coords))
+    axes: Dict[FrozenSet[str], ParallelAxis] = {}
+    n_axes = len(axis_names)
+    for mask in range(1, 1 << n_axes):
+        sub = [i for i in range(n_axes) if mask >> i & 1]
+        rest = [i for i in range(n_axes) if not mask >> i & 1]
+        size = 1
+        for i in sub:
+            size *= axis_sizes[i]
+        for fixed in itertools.product(*(range(axis_sizes[i])
+                                         for i in rest)):
+            members = []
+            for inner in itertools.product(*(range(axis_sizes[i])
+                                             for i in sub)):
+                c = [0] * n_axes
+                for i, v in zip(rest, fixed):
+                    c[i] = v
+                for i, v in zip(sub, inner):
+                    c[i] = v
+                members.append(ranks[_row_major(axis_sizes, c)])
+            mine = coords is not None and all(
+                coords[i] == v for i, v in zip(rest, fixed))
+            group = None
+            if size > 1 and (mine or not local_sync):
+                group = dist.new_group(sorted(members),
+                                       use_local_synchronization=local_sync)
+            if mine:
+                index = _row_major([axis_sizes[i] for i in sub],
+                                   [coords[i] for i in sub])
+                key = frozenset(axis_names[i] for i in sub)
+                axes[key] = ParallelAxis(group if size > 1 else None, size,
+                                         index)
+    if coords is None:
+        return None
+    return MeshComm(me, axis_names, axis_sizes, coords, axes)
+
+
+def mesh_axis(mesh, names: Iterable[str]) -> ParallelAxis:
+    """``mesh``'s :class:`ParallelAxis` over ``names`` for this rank: a
+    size-1 axis when ``mesh`` is None or has no process groups (one
+    process)."""
+    comm = getattr(mesh, "comm", None)
+    if comm is None:
+        return ParallelAxis(None, 1, 0)
+    return comm.axis(names)
+
+
+# -------------------------------------------------------- collectives ----
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` in place over ``group`` (``op`` "sum" or "max") and
+    return it."""
+    if group is not None:
+        dist.all_reduce(x, op=_OPS[op], group=group)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group`` (a new tensor; a
+    quantisation scale taken over a whole sharded leaf)."""
+    return all_reduce(x.detach().clone(), group, "max")
+
+
+def all_reduce_by_axes(values: Sequence[torch.Tensor],
+                       axes: Sequence[Tuple[str, ...]], mesh,
+                       op: str = "sum") -> list:
+    """Reduce each of ``values`` (same-shaped tensors, one a leaf) over
+    the mesh axes in the same place of ``axes`` (the axes its leaf is
+    sharded over; none: left as it is), one collective for each set of
+    axes. Returns new tensors."""
+    out = list(values)
+    buckets: Dict[FrozenSet[str], list] = {}
+    for i, names in enumerate(axes):
+        key = frozenset(names)
+        if key and mesh_axis(mesh, key).group is not None:
+            buckets.setdefault(key, []).append(i)
+    for key, idx in buckets.items():
+        stacked = torch.stack([values[i].detach() for i in idx])
+        all_reduce(stacked, mesh_axis(mesh, key).group, op)
+        for j, i in enumerate(idx):
+            out[i] = stacked[j]
+    return out
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """``x`` of group rank ``src``, in place on every rank."""
+    if group is None:
+        return x
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x
+
+
+def _host_side(group) -> torch.device:
+    """Where a small tensor for ``group``'s backend lives: the host for
+    gloo, this rank's card for nccl."""
+    if dist.get_backend(group) == "nccl":
+        return local_device("cuda")
+    return torch.device("cpu")
+
+
+def broadcast_int(value: int, group, src: int = 0) -> int:
+    """Group rank ``src``'s ``value`` on every rank of ``group``."""
+    if group is None:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=_host_side(group))
+    broadcast(t, group, src)
+    return int(t.item())
+
+
+def all_gather_ints(value: int, group) -> list:
+    """Every rank's ``value`` in group-rank order."""
+    if group is None:
+        return [int(value)]
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=_host_side(group))
+    return [int(v) for v in all_gather(t, group).tolist()]
+
+
+def barrier(group) -> None:
+    """Wait for every rank of ``group`` (``dist.group.WORLD`` for the
+    world; ``None``, one rank, returns at once)."""
+    if group is not None:
+        dist.barrier(group=group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` joined along ``dim`` in group-rank order."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _all_gather_single(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum of the ranks' ``x``
+    (``x.shape[dim]`` splits evenly over the group)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split {n} ways")
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _reduce_scatter_single(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _CopyToParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+def copy_to_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` into a column-parallel region: the identity forward, the
+    gradients' sum over ``group`` backward (each rank's is partial)."""
+    if group is None:
+        return x
+    return _CopyToParallel.apply(x, group)
+
+
+def reduce_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """Out of a row-parallel region: the sum of the ranks' partial ``x``
+    forward, the gradient as it is backward."""
+    if group is None:
+        return x
+    return _ReduceFromParallel.apply(x, group)
+
+
+def gather_from_parallel(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A sharded leaf made whole along ``dim`` (all-gather) for use in a
+    parallel region; backward sums the ranks' gradients of the whole leaf
+    and gives each rank its part (reduce-scatter)."""
+    if group is None:
+        return x
+    return _GatherFromParallel.apply(x, group, dim % x.ndim)
+
+
+# -------------------------------------------------------------- probe ----
+def probe_gloo_cuda() -> Dict[str, str]:
+    """Each of :data:`COLLECTIVES` called on CUDA tensors over the
+    running gloo world: ``{name: "ok" or the error}``."""
+    dev = local_device("cuda")
+    n = dist.get_world_size()
+    x = torch.arange(4, dtype=torch.float32, device=dev) + dist.get_rank()
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(),
+                                                  op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: _all_gather_single(x.new_empty(4 * n), x),
+        "reduce_scatter": lambda: _reduce_scatter_single(x.new_empty(4),
+                                                         x.repeat(n)),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except Exception as e:     # noqa: BLE001 -- the probe's answer
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return out
+
+
+if __name__ == "__main__":
+    # python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.dist
+    import json
+    init_distributed("gloo")
+    torch.cuda.set_device(local_device("cuda"))
+    found = probe_gloo_cuda()
+    if dist.get_rank() == 0:
+        print(json.dumps({"torch": torch.__version__, "gloo_cuda": found}))
+    dist.destroy_process_group()

@@ -94,8 +94,8 @@ from repro_torch.configs.shapes import shape_applicable
 from repro_torch.engine import Engine
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import build_model, input_specs
-from repro_torch.models.transformer import (init_decode_state, init_params,
-                                            stack_plan)
+from repro_torch.models.model import abstract_params
+from repro_torch.models.transformer import init_decode_state, stack_plan
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.train import make_prefill, make_serve_step, make_train_step
 from repro_torch.train.sharding import (batch_shardings, param_shardings,
@@ -107,7 +107,8 @@ from repro_torch.tree import (tree_flatten, tree_flatten_with_path,
 __all__ = ["MICROBATCHES", "MICROBATCHES_BY_ARCH", "COLLECTIVE_RE",
            "SHAPE_RE", "DTYPE_BYTES", "H100_MEMORY_BYTES",
            "collective_bytes", "abstract_params", "abstract_states",
-           "spec_bytes", "StepTrace", "at_depth", "trace_step",
+           "spec_bytes", "train_state_bytes", "StepTrace", "at_depth",
+           "trace_step",
            "lower_cell", "cell_record", "real_step", "main"]
 
 # No logging side effects at import time: handlers attach only when
@@ -186,19 +187,6 @@ def _fmt_bytes(n: float) -> str:
 
 
 # ------------------------------------------------------------- specs ----
-def _meta(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device="meta")
-
-
-def abstract_params(cfg, dtype=torch.bfloat16):
-    """``cfg``'s parameter tree as ``device="meta"`` tensors: the shapes
-    and dtypes of :func:`repro_torch.models.transformer.init_params`,
-    drawn under ``FakeTensorMode``; nothing is allocated."""
-    with FakeTensorMode():
-        params = init_params(cfg, torch.Generator().manual_seed(0), dtype)
-    return tree_map(_meta, params)
-
-
 def abstract_states(cfg, batch: int, cache_len: int,
                     dtype=torch.bfloat16):
     """``cfg``'s decode states for ``batch`` sequences against a
@@ -234,6 +222,19 @@ def _shape_spec(name: str):
     return next(s for s in SHAPES if s.name == name)
 
 
+def train_state_bytes(cfg, mesh: Mesh, params=None) -> int:
+    """One device's bytes of a train step's parameters (``params``'
+    dtype, by the rules) and AdamW state (float32 ``m`` and ``v`` by
+    ZeRO-1, and the int32 count) on ``mesh``: what a rank of a sharded
+    run places (``TrainRun.placed_bytes``)."""
+    if params is None:
+        params = abstract_params(cfg)
+    p = _tree_bytes(mesh, params, param_shardings(mesh, params))
+    opt = 2 * _tree_bytes(mesh, params, zero1_shardings(mesh, params),
+                          itemsize=4) + 4
+    return p + opt
+
+
 def spec_bytes(cfg, shape, mesh: Mesh, params=None) -> Tuple[int, int]:
     """(argument bytes, output bytes) of one device of ``mesh`` for the
     step of ``shape`` on ``cfg``, exact from the partition specs; traces
@@ -245,11 +246,9 @@ def spec_bytes(cfg, shape, mesh: Mesh, params=None) -> Tuple[int, int]:
     specs = input_specs(cfg, shape)
     batch = _tree_bytes(mesh, specs, batch_shardings(mesh, specs))
     if shape.kind == "train":
-        # AdamW's float32 m and v under ZeRO-1, and its int32 count
-        opt = 2 * _tree_bytes(mesh, params, zero1_shardings(mesh, params),
-                              itemsize=4) + 4
+        state = train_state_bytes(cfg, mesh, params)
         metrics = 3 * 4                      # loss, grad_norm, lr
-        return p + opt + batch, p + opt + metrics
+        return state + batch, state + metrics
     # the greedy next token: (B, 1) int32, sharded as the tokens are
     tok = specs["tokens" if shape.kind == "prefill" else "token"]
     nxt = torch.empty((tok.shape[0], 1), dtype=torch.int32, device="meta")

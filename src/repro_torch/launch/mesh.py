@@ -4,31 +4,40 @@ The port's copy of the host half of ``repro.launch.mesh``. A
 :class:`Mesh` takes the place of ``jax.sharding.Mesh`` (and, without
 devices, of ``AbstractMesh``): axis names, their sizes, and the devices
 laid out over them. The partition rules of
-:mod:`repro_torch.train.sharding` read only the names and sizes.
+:mod:`repro_torch.train.sharding` read only the names and sizes; under
+a ``torch.distributed`` process group the mesh is laid over the ranks,
+one process a rank, and ``comm`` holds this rank's coordinates and the
+axes' process groups (:class:`repro_torch.dist.MeshComm`).
 
 Functions, not module-level constants: importing this module touches no
 device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import dist
+
 __all__ = ["Mesh", "abstract_mesh", "make_production_mesh", "make_host_mesh",
-           "dp_axes", "tp_axis"]
+           "mesh_over_ranks", "dp_axes", "tp_axis"]
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Named axes (``axis_names``) of sizes ``axis_sizes`` over
-    ``devices`` (a nested tuple shaped as the axes), or over no devices
-    (an abstract mesh, for computing specs)."""
+    ``devices`` (a nested tuple shaped as the axes: devices, or the
+    global ranks of a process-group mesh), or over no devices (an
+    abstract mesh, for computing specs). ``comm``: this rank's
+    :class:`repro_torch.dist.MeshComm` on a process-group mesh, else
+    None (one process)."""
 
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     devices: Optional[tuple] = None
+    comm: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
@@ -39,6 +48,14 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        """The number of devices (ranks) of the mesh."""
+        n = 1
+        for a in self.axis_sizes:
+            n *= a
+        return n
 
 
 def abstract_mesh(axis_sizes: Tuple[int, ...],
@@ -56,9 +73,44 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return abstract_mesh((16, 16), ("data", "model"))
 
 
+def mesh_over_ranks(axis_sizes: Tuple[int, ...],
+                    axis_names: Tuple[str, ...], ranks=None, *,
+                    local_sync: bool = False) -> Mesh:
+    """A :class:`Mesh` over global ``ranks`` (default: the world's, in
+    order) laid out row-major over the axes, with this rank's process
+    groups in ``comm`` (None on a rank outside ``ranks``). Needs a running
+    process group; see :func:`repro_torch.dist.build_mesh_comm` for who
+    must call it."""
+    if ranks is None:
+        ranks = list(range(dist.world_size()))
+    ranks = [int(r) for r in ranks]
+    comm = dist.build_mesh_comm(axis_sizes, axis_names, ranks,
+                                local_sync=local_sync)
+    grid = _grid(ranks, tuple(axis_sizes))
+    return Mesh(tuple(axis_sizes), tuple(axis_names), grid, comm)
+
+
+def _grid(items, sizes):
+    if len(sizes) == 1:
+        return tuple(items)
+    step = len(items) // sizes[0]
+    return tuple(_grid(items[i * step:(i + 1) * step], sizes[1:])
+                 for i in range(sizes[0]))
+
+
 def make_host_mesh(model_parallel: int = 1) -> Mesh:
-    """Whatever this host has: (data, model) over its CUDA cards, or over
-    the CPU (one device) when it has none."""
+    """Whatever this host has: under a running ``torch.distributed``
+    process group, (data, model) over the world's ranks (one process a
+    rank, each on :func:`repro_torch.dist.local_device`); without one,
+    (data, model) over this host's CUDA cards, or over the CPU (one
+    device) when it has none."""
+    if dist.is_initialized():
+        n = dist.world_size()
+        if model_parallel < 1 or n % model_parallel:
+            raise ValueError(f"model_parallel {model_parallel} does not "
+                             f"divide the world of {n} rank(s)")
+        return mesh_over_ranks((n // model_parallel, model_parallel),
+                               ("data", "model"))
     if torch.cuda.is_available():
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

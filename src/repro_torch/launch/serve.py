@@ -45,7 +45,8 @@ Without ``--pim-backend`` either mode runs on the port's default engine,
 packed torch on CUDA, and raises when there is no card.
 
 The port's copy of ``repro.launch.serve``. ``--model-parallel`` takes only
-1 (the port has no sharded model). The reference's deprecated ``--pim-k``
+1: sharded serving is the next slice (training shards already). The
+reference's deprecated ``--pim-k``
 (pin the batch width) is dropped: ``--traffic-slots`` clamps the slot
 budget, and K is load-driven.
 """
@@ -528,8 +529,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-parallel width; only 1 (the port has no "
-                         "sharded model)")
+                    help="model-parallel width; only 1 (sharded serving "
+                         "is the next slice of the port)")
     ap.add_argument("--pim", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="run the LM head as a PIM-mode linear through "
@@ -621,9 +622,12 @@ def main(argv: Optional[Sequence[str]] = None):
                          "gauges, latency histograms) as JSON")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel}: the "
-                         f"port serves an unsharded model on one card; "
-                         f"only --model-parallel 1 is supported")
+        raise SystemExit(f"--model-parallel {args.model_parallel}: "
+                         f"sharded serving (prefill and decode over a mesh "
+                         f"of ranks, caches sharded by state_shardings) is "
+                         f"the next slice of the port; serving takes "
+                         f"--model-parallel 1 (training shards: "
+                         f"repro_torch.launch.train)")
     obs.setup_logging()
     if args.trace:
         obs.enable()

@@ -21,6 +21,14 @@ kind-specific:
 of the PIM scopes (``cfg.pim_scopes()``) run through; projections outside
 them are plain ``@``. MoE dispatch is dropless sort -> grouped GEMM ->
 scatter-add, so prefill and decode agree.
+
+``tp`` (:func:`tensor_parallel`) is this rank's place on the mesh's
+``model`` axis, or None. Under it the attention and MLP blocks of the
+dense decoders compute their shard in Megatron's layout, which is what
+GSPMD makes of the partition rules: the q/k/v and w1/w3 projections
+column-parallel on this rank's heads and columns, ``wo`` and ``w2``
+row-parallel, followed by the sum over ranks. Every other block kind
+raises ``NotImplementedError`` under it.
 """
 from __future__ import annotations
 
@@ -30,13 +38,23 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.pim.quant import ragged_dot
 
 from .attention import KVCache, attend, decode_attend
 from .layers import Initializer, rms_norm, rope
 
-__all__ = ["init_block", "apply_block", "init_state", "pim_proj"]
+__all__ = ["init_block", "apply_block", "init_state", "pim_proj",
+           "tensor_parallel"]
+
+# The ROADMAP item that ports what raises here under a sharded mesh.
+TP_TODO = ("ROADMAP A: tensor parallelism for MoE, RG-LRU, RWKV, the VLM "
+           "and enc-dec")
+SHARDED_SERVING_TODO = ("ROADMAP A: sharded serving, with decode states "
+                        "sharded by state_shardings")
+SHARDED_PIM_TODO = ("ROADMAP A: sharded serving, with PIM quantisation "
+                    "scales reduced across ranks")
 
 
 def _gelu(x):
@@ -48,6 +66,60 @@ def _engine(engine):
         from repro_torch.engine import get_engine   # the card's engine
         engine = get_engine()
     return engine
+
+
+# ------------------------------------------------- tensor parallelism ----
+def tensor_parallel(cfg: ModelConfig, mesh):
+    """This rank's :class:`repro_torch.dist.ParallelAxis` on the
+    ``model`` axis of ``mesh``, or None when there is no mesh of ranks
+    or that axis holds one rank.
+
+    Raises ``NotImplementedError`` for PIM scopes on a mesh of more than
+    one rank (a shard's quantisation scales would not be the whole
+    tensor's), and under a ``model`` axis for any model but a dense
+    decoder of attention blocks with heads that split over it."""
+    if mesh is None or getattr(mesh, "comm", None) is None:
+        return None
+    if mesh.size > 1 and cfg.pim_scopes():
+        raise NotImplementedError(
+            f"PIM scopes {cfg.pim_scopes()} on a mesh of {mesh.size} "
+            f"ranks: {SHARDED_PIM_TODO}")
+    tp = dist.mesh_axis(mesh, ("model",))
+    if tp.size == 1:
+        return None
+    kinds = set(cfg.layer_kinds())
+    if cfg.family != "decoder" or not kinds <= {"g", "l"}:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r}, block kinds "
+            f"{sorted(kinds)} under a model axis of {tp.size}: {TP_TODO}")
+    if cfg.n_heads % tp.size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads do not split over a model "
+            f"axis of {tp.size}")
+    hq, g = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
+    if hq % g and g % hq:
+        raise NotImplementedError(
+            f"{cfg.name}: {hq} query heads a rank do not align with "
+            f"groups of {g} over the KV heads")
+    return tp
+
+
+def _tp_cols(w: torch.Tensor, lo: int, hi: int, full: int, tp,
+             dim: int = -1) -> torch.Tensor:
+    """Columns (``dim``) ``[lo, hi)`` of the whole weight, from this
+    rank's stored ``w`` for use in a parallel region: its own shard when
+    that holds them; the whole leaf gathered (a reduce-scatter of its
+    gradient) when it does not, as GSPMD reshards a shard that splits a
+    head; a replicated leaf with its gradient summed over the ranks."""
+    dim = dim % w.ndim
+    n = w.shape[dim]
+    if n == full:
+        return dist.copy_to_parallel(w, tp.group).narrow(dim, lo, hi - lo)
+    start = tp.index * n
+    if start <= lo and hi <= start + n:
+        return w.narrow(dim, lo - start, hi - lo)
+    whole = dist.gather_from_parallel(w, tp.group, dim)
+    return whole.narrow(dim, lo, hi - lo)
 
 
 # ------------------------------------------------------ PIM offload ----
@@ -108,15 +180,34 @@ def _init_mlp(cfg: ModelConfig, ini: Initializer, d_ff: int) -> Dict[str, Any]:
 
 
 def _apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
-               engine=None):
+               engine=None, tp=None):
     # Same math as layers.swiglu/gelu_mlp, with each projection routed
     # through the PIM hook (plain matmul when the scope is off).
+    if tp is not None and cfg.d_ff % tp.size == 0:
+        return _apply_mlp_tp(cfg, p, x, tp)
     h1 = pim_proj(cfg, x, p["w1"], scope="ffn", engine=engine)
     if "w3" in p:
         gated = F.silu(h1) * pim_proj(cfg, x, p["w3"], scope="ffn",
                                       engine=engine)
         return pim_proj(cfg, gated, p["w2"], scope="ffn", engine=engine)
     return pim_proj(cfg, _gelu(h1), p["w2"], scope="ffn", engine=engine)
+
+
+def _apply_mlp_tp(cfg: ModelConfig, p, x, tp):
+    """The MLP on this rank's ``d_ff / tp`` columns: ``w1``/``w3``
+    column-parallel, ``w2`` row-parallel, then the sum over ranks. (A
+    ``d_ff`` that does not split keeps every weight whole, and every
+    rank computes the whole MLP.)"""
+    f = cfg.d_ff // tp.size
+    lo, hi = tp.index * f, (tp.index + 1) * f
+    xp = dist.copy_to_parallel(x, tp.group)
+    h1 = xp @ _tp_cols(p["w1"], lo, hi, cfg.d_ff, tp)
+    if "w3" in p:
+        h = F.silu(h1) * (xp @ _tp_cols(p["w3"], lo, hi, cfg.d_ff, tp))
+    else:
+        h = _gelu(h1)
+    out = h @ _tp_cols(p["w2"], lo, hi, cfg.d_ff, tp, dim=-2)
+    return dist.reduce_from_parallel(out, tp.group)
 
 
 def init_attn_block(cfg: ModelConfig, ini: Initializer, kind: str,
@@ -135,7 +226,39 @@ def init_attn_block(cfg: ModelConfig, ini: Initializer, kind: str,
     return p
 
 
-def _qkv(cfg: ModelConfig, p, xn, pos, engine):
+def _tp_heads(cfg: ModelConfig, tp):
+    """(first query head, query heads, first KV head, KV heads) of this
+    rank: its ``n_heads / tp`` query heads and the KV heads they map to
+    under GQA."""
+    hq = cfg.n_heads // tp.size
+    q0 = tp.index * hq
+    g = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = q0 // g, (q0 + hq - 1) // g + 1
+    return q0, hq, k0, k1 - k0
+
+
+def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp):
+    """q, k, v of this rank's heads (column-parallel projections)."""
+    b, s, _ = xn.shape
+    hd = cfg.hd
+    q0, hq, k0, hk = _tp_heads(cfg, tp)
+    xp = dist.copy_to_parallel(xn, tp.group)
+    q = (xp @ _tp_cols(p["wq"], q0 * hd, (q0 + hq) * hd, cfg.q_dim, tp)
+         ).reshape(b, s, hq, hd)
+    kv = (k0 * hd, (k0 + hk) * hd, cfg.kv_dim, tp)
+    k = (xp @ _tp_cols(p["wk"], *kv)).reshape(b, s, hk, hd)
+    v = (xp @ _tp_cols(p["wv"], *kv)).reshape(b, s, hk, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, dist.copy_to_parallel(p["qn"], tp.group),
+                     cfg.norm_eps)
+        k = rms_norm(k, dist.copy_to_parallel(p["kn"], tp.group),
+                     cfg.norm_eps)
+    return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
+
+
+def _qkv(cfg: ModelConfig, p, xn, pos, engine, tp=None):
+    if tp is not None:
+        return _qkv_tp(cfg, p, xn, pos, tp)
     b, s, _ = xn.shape
     q = pim_proj(cfg, xn, p["wq"], scope="attn", engine=engine).reshape(
         b, s, cfg.n_heads, cfg.hd)
@@ -157,12 +280,18 @@ def _pad_seq(x, n):
 
 
 def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                     kind: str, engine=None):
-    """One attention block: (self-attention [+ cross-attention] + MLP)."""
+                     kind: str, engine=None, tp=None):
+    """One attention block: (self-attention [+ cross-attention] + MLP).
+    Under ``tp``, self-attention and the MLP on this rank's heads and
+    columns (no decode state: sharded caches are not ported)."""
     b, s, d = x.shape
     window = cfg.window if kind == "l" else None
+    if tp is not None and state is not None:
+        raise NotImplementedError(
+            f"decode states under a model axis of {tp.size}: "
+            f"{SHARDED_SERVING_TODO}")
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xn, pos, engine)
+    q, k, v = _qkv(cfg, p, xn, pos, engine, tp)
     new_state = state
     if mode in ("full", "encode"):
         o = attend(q, k, v, causal=(mode != "encode"), window=window,
@@ -187,8 +316,15 @@ def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
                                  window=window, cap=cfg.softcap_attn)
         new_state = dict(state)
         new_state["self"] = cache._asdict()
-    x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], scope="attn",
-                     engine=engine)
+    if tp is not None:          # row-parallel out-projection, then the sum
+        q0, hq = _tp_heads(cfg, tp)[:2]
+        wo = _tp_cols(p["wo"], q0 * cfg.hd, (q0 + hq) * cfg.hd, cfg.q_dim,
+                      tp, dim=-2)
+        x = x + dist.reduce_from_parallel(
+            o.reshape(b, s, hq * cfg.hd) @ wo, tp.group)
+    else:
+        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"],
+                         scope="attn", engine=engine)
 
     if cfg.family == "encdec" and enc_out is not None:
         xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
@@ -203,7 +339,7 @@ def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
                          scope="attn", engine=engine)
 
     xn3 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine)
+    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine, tp=tp)
     return x, new_state
 
 
@@ -482,12 +618,16 @@ def init_block(cfg: ModelConfig, ini: Initializer, kind: str):
 
 
 def apply_block(cfg: ModelConfig, kind: str, p, x, *, pos, state=None,
-                enc_out=None, mode="full", engine=None):
-    """Apply one block of layer kind ``kind``; returns (y, new_state)."""
+                enc_out=None, mode="full", engine=None, tp=None):
+    """Apply one block of layer kind ``kind``; returns (y, new_state).
+    ``tp`` (:func:`tensor_parallel`) only for attention blocks."""
     if kind in ("g", "l"):
         return apply_attn_block(cfg, p, x, pos=pos, state=state,
                                 enc_out=enc_out, mode=mode, kind=kind,
-                                engine=engine)
+                                engine=engine, tp=tp)
+    if tp is not None:
+        raise NotImplementedError(f"block kind {kind!r} under a model axis "
+                                  f"of {tp.size}: {TP_TODO}")
     if kind == "d":
         return apply_attn_block(cfg, p, x, pos=pos, state=state,
                                 enc_out=enc_out, mode=mode, kind="g",

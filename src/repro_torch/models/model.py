@@ -5,6 +5,14 @@ one :class:`repro_torch.engine.Engine` and lives on that engine's device:
 its PIM-scope projections run through the engine, and its parameters and
 decode states are made there. :func:`input_specs` gives the dry-run's
 shape stand-ins for a shape cell's inputs.
+
+Given a mesh of ranks (``mesh=``) the loss is this rank's
+share of the global loss: its rows' masked sum over the masked-token
+count of the whole batch (summed over the data axes), so the shares and
+their gradients sum over the data ranks to the unsharded loss and its
+gradients, however unevenly the ranks' labels are masked. Over a
+``model`` axis the logits are sharded by vocabulary and the cross
+entropy is vocab-parallel.
 """
 from __future__ import annotations
 
@@ -13,11 +21,13 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 
 from . import transformer as T
+from .blocks import tensor_parallel
 
-__all__ = ["Model", "build_model", "input_specs"]
+__all__ = ["Model", "build_model", "input_specs", "abstract_params"]
 
 
 @dataclass(frozen=True)
@@ -61,7 +71,9 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         return T.init_params(cfg, gen, dtype)
 
-    def loss(params, batch) -> torch.Tensor:
+    def loss(params, batch, mesh=None) -> torch.Tensor:
+        """The masked mean cross entropy of ``batch``; with a ``mesh``
+        of ranks, this rank's share (see the module docstring)."""
         tokens = batch["tokens"]
         labels = batch["labels"]
         kwargs = {}
@@ -70,22 +82,16 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
         if cfg.family == "encdec":
             kwargs["enc_frames"] = batch["frames"]
         logits, _ = T.forward(cfg, params, tokens, remat=remat,
-                              engine=engine, **kwargs)
+                              engine=engine, mesh=mesh, **kwargs)
         if cfg.family == "vlm":   # patches prepended: score text tail only
             logits = logits[:, -tokens.shape[1]:]
-        # The reference's cross entropy: max-shifted log-sum-exp minus the
-        # label's logit, masked where labels < 0.
-        labels = labels.long()
-        m = torch.amax(logits, dim=-1, keepdim=True).detach()
-        shifted = (logits - m).to(torch.float32)
-        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-        label_logit = torch.gather(
-            logits, -1, labels.clamp_min(0)[..., None])[..., 0]
-        label_logit = torch.where(labels >= 0, label_logit,
-                                  0.0).to(torch.float32)
-        nll = lse.to(torch.float32) - label_logit
+        nll = _nll(cfg, logits, labels.long(), tensor_parallel(cfg, mesh))
         mask = (labels >= 0).to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        count = torch.sum(mask)
+        dp = dist.mesh_axis(mesh, ("pod", "data"))
+        if dp.group is not None:      # the whole batch's masked tokens
+            count = dist.all_reduce(count.detach().clone(), dp.group)
+        return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
 
     def fwd(params, tokens, **kw):
         return T.forward(cfg, params, tokens, engine=engine, **kw)
@@ -98,6 +104,45 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
         return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev)
 
     return Model(cfg, engine, dev, init, loss, fwd, decode, init_state)
+
+
+def _nll(cfg: ModelConfig, logits, labels, tp) -> torch.Tensor:
+    """The reference's cross entropy, token by token: max-shifted
+    log-sum-exp minus the label's logit (0 where labels < 0), float32.
+    With ``logits`` sharded by vocabulary over ``tp``: the global max,
+    the sum of exponentials and the label's logit (from the rank that
+    holds it) each summed over the ranks."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    sharded = tp is not None and logits.shape[-1] != cfg.vocab_size
+    if sharded:
+        m = dist.all_reduce_max(m, tp.group)
+    shifted = (logits - m).to(torch.float32)
+    sumexp = torch.sum(torch.exp(shifted), dim=-1)
+    if not sharded:
+        lse = torch.log(sumexp) + m[..., 0]
+        label_logit = torch.gather(
+            logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        label_logit = torch.where(labels >= 0, label_logit,
+                                  0.0).to(torch.float32)
+        return lse.to(torch.float32) - label_logit
+    n = logits.shape[-1]
+    lse = torch.log(dist.reduce_from_parallel(sumexp, tp.group)) + m[..., 0]
+    ids = labels - tp.index * n
+    mine = (labels >= 0) & (ids >= 0) & (ids < n)
+    local = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    local = torch.where(mine, local, 0.0).to(torch.float32)
+    return lse.to(torch.float32) - dist.reduce_from_parallel(local, tp.group)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16):
+    """``cfg``'s parameter tree as ``device="meta"`` tensors: the shapes
+    and dtypes of :func:`repro_torch.models.transformer.init_params`,
+    drawn under ``FakeTensorMode``; nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), dtype)
+    return T.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                            device="meta"), params)
 
 
 def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16

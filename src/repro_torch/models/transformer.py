@@ -11,6 +11,16 @@ the caches where they lie and allocates no second copy.
 
 Decode states keep every counter (a cache's ``length``, its ring slot) as
 a device tensor: a decode step never waits for the card.
+
+Given a mesh of ranks (``mesh=``) with a ``model`` axis,
+:func:`forward` takes this rank's place on it once
+(:func:`repro_torch.models.blocks.tensor_parallel`) and hands it to every
+block: the embedding is vocab-parallel (a masked lookup of this rank's
+rows, then the sum over ranks), the blocks compute their shard, and the
+logits stay sharded over the vocabulary for the loss
+(:func:`repro_torch.models.model.build_model`'s vocab-parallel cross
+entropy). A leaf that the rules keep whole (a vocabulary that does not
+split) is used whole.
 """
 from __future__ import annotations
 
@@ -18,10 +28,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_flatten, tree_map
 
-from .blocks import _engine, apply_block, init_block, init_state
+from .blocks import (SHARDED_SERVING_TODO, _engine, apply_block, init_block,
+                     init_state, tensor_parallel)
 from .layers import Initializer, rms_norm, softcap
 
 __all__ = ["stack_plan", "init_params", "forward", "decode_step",
@@ -157,7 +169,7 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, *,
 
 # ------------------------------------------------------------- forward ----
 def _unit_checkpointed(cfg: ModelConfig, unit, stacked, i: int, x, pos,
-                       enc_out, mode: str, engine):
+                       enc_out, mode: str, engine, tp=None):
     """Unit ``i`` of the stacked loop under activation checkpointing: its
     parameter views are the checkpoint's inputs, so their gradients flow
     into the stacked leaves."""
@@ -168,21 +180,33 @@ def _unit_checkpointed(cfg: ModelConfig, unit, stacked, i: int, x, pos,
         blks = treedef.unflatten(flat)
         for j, kind in enumerate(unit):
             h, _ = apply_block(cfg, kind, blks[j], h, pos=pos,
-                               enc_out=enc_out, mode=mode, engine=engine)
+                               enc_out=enc_out, mode=mode, engine=engine,
+                               tp=tp)
         return h
     # No draw in the forward needs replaying: skip saving the RNG state.
     return checkpoint(run, x, *leaves, use_reentrant=False,
                       preserve_rng_state=False)
 
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()] * (
-        cfg.d_model ** 0.5 if cfg.family != "rwkv" else 1.0)
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    scale = cfg.d_model ** 0.5 if cfg.family != "rwkv" else 1.0
+    emb = params["embed"]
+    if tp is None or emb.shape[0] == cfg.vocab_size:
+        return emb[tokens.long()] * scale
+    # vocab-parallel: this rank's rows, zero elsewhere, summed over ranks
+    n = emb.shape[0]
+    ids = tokens.long() - tp.index * n
+    mine = (ids >= 0) & (ids < n)
+    local = torch.where(mine[..., None], emb[ids.clamp(0, n - 1)], 0.0)
+    return dist.reduce_from_parallel(local, tp.group) * scale
 
 
-def _head(cfg: ModelConfig, params, x, engine):
+def _head(cfg: ModelConfig, params, x, engine, tp=None):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    if tp is not None and head.shape[-1] != cfg.vocab_size:
+        x = dist.copy_to_parallel(x, tp.group)   # logits over this shard
     return softcap(head_matmul(cfg, x, head, engine=engine),
                    cfg.softcap_final)
 
@@ -192,7 +216,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             enc_frames: Optional[torch.Tensor] = None,
             states=None, mode: str = "full",
             positions: Optional[torch.Tensor] = None,
-            remat: bool = False, engine=None):
+            remat: bool = False, engine=None, mesh=None):
     """Full-sequence forward. ``tokens`` (B, S) integers.
 
     ``extra_embed``: (B, P, D) patch/frame embeddings prepended to the
@@ -207,9 +231,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     only each unit's input and recomputes the rest; prefix and suffix
     blocks are not rematerialised, as in the reference. The gradients do
     not change, only the peak memory.
+
+    Given a ``mesh`` of ranks with a ``model`` axis, ``params`` are this
+    rank's shards and the logits this rank's part of
+    the vocabulary (see the module docstring); ``states`` are not ported
+    there and raise.
     """
+    tp = tensor_parallel(cfg, mesh)
+    if tp is not None and states is not None:
+        raise NotImplementedError(f"decode states under a model axis of "
+                                  f"{tp.size}: {SHARDED_SERVING_TODO}")
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, tp)
     if extra_embed is not None:
         x = torch.cat([extra_embed @ params["patch_proj"], x], dim=1)
         s = x.shape[1]
@@ -228,21 +261,22 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     for i, kind in enumerate(prefix):
         x, ns = apply_block(cfg, kind, params["prefix"][i], x, pos=pos,
                             state=(st.get("prefix") or [None] * len(prefix))[i],
-                            enc_out=enc_out, mode=mode, engine=engine)
+                            enc_out=enc_out, mode=mode, engine=engine, tp=tp)
         new_states["prefix"].append(ns)
 
     scan_states = st.get("scan")
     for i in range(n_units):
         if remat and scan_states is None:
             x = _unit_checkpointed(cfg, unit, params["scan"], i, x, pos,
-                                   enc_out, mode, engine)
+                                   enc_out, mode, engine, tp)
             continue
         for j, kind in enumerate(unit):
             x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
                                 pos=pos,
                                 state=None if scan_states is None
                                 else _at(scan_states[j], i),
-                                enc_out=enc_out, mode=mode, engine=engine)
+                                enc_out=enc_out, mode=mode, engine=engine,
+                                tp=tp)
             if scan_states is not None:
                 _put(scan_states[j], i, ns)
     new_states["scan"] = scan_states
@@ -250,10 +284,10 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     for i, kind in enumerate(suffix):
         x, ns = apply_block(cfg, kind, params["suffix"][i], x, pos=pos,
                             state=(st.get("suffix") or [None] * len(suffix))[i],
-                            enc_out=enc_out, mode=mode, engine=engine)
+                            enc_out=enc_out, mode=mode, engine=engine, tp=tp)
         new_states["suffix"].append(ns)
 
-    logits = _head(cfg, params, x, engine)
+    logits = _head(cfg, params, x, engine, tp)
     return logits, (new_states if states is not None else None)
 
 

@@ -11,6 +11,14 @@ under ``torch.no_grad()``: the reference donates them to its jitted step
 functional update here would hold a second copy of all three. It still
 returns ``(params, OptState, metrics)`` as the reference does, holding
 the same tensors.
+
+Sharded (ZeRO-1, :func:`repro_torch.train.make_train_step` over a mesh of
+ranks): each rank passes its shards of the gradients, moments and
+parameters with ``mesh`` and, for each leaf, the mesh axes it is sharded
+over (``axes``). The global norm, and so the clip, is then the whole
+tree's: each leaf's sum of squares is summed over exactly the axes that
+shard it, so a replicated leaf is counted once. The update itself is
+elementwise on the shards.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
@@ -66,11 +75,15 @@ def cosine_schedule(cfg: AdamWConfig) -> Callable[[torch.Tensor],
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, axes=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in JAX's order) of each leaf's sum of
-    squares, in float32."""
+    squares, in float32. With ``mesh`` and ``axes`` (one tuple of mesh
+    axis names a leaf), the leaves are shards and each sum of squares is
+    first summed over its leaf's axes."""
     sq = [torch.sum(torch.square(x.to(torch.float32)))
           for x in tree_leaves(tree)]
+    if axes is not None:
+        sq = dist.all_reduce_by_axes(sq, axes, mesh, "sum")
     return torch.sqrt(sum(sq))
 
 
@@ -98,20 +111,21 @@ def adamw_init(params) -> OptState:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: OptState, params
-                 ) -> Tuple[Any, OptState, dict]:
+def adamw_update(cfg: AdamWConfig, grads, state: OptState, params, *,
+                 mesh=None, axes=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step of ``params`` by ``grads``: clip to
     ``cfg.clip_norm``, advance the count, take the scheduled learning
     rate, update the moments and the parameters in place. Returns
     ``(params, OptState(m, v, count + 1), {"grad_norm", "lr"})``, the
-    norm taken before clipping."""
+    norm taken before clipping. ``mesh``/``axes``: shards, as
+    :func:`global_norm` takes them."""
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_leaves(grads)
     flat_m = tree_leaves(state.m)
     flat_v = tree_leaves(state.v)
     if not len(flat_g) == len(flat_m) == len(flat_v) == treedef.num_leaves:
         raise ValueError("grads, moments and params differ in structure")
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g, mesh, axes)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     count = state.count + 1
     lr = cosine_schedule(cfg)(count)

@@ -7,10 +7,14 @@ step, so it does not bias the long-run update direction. On the same
 float32 inputs :func:`quantize_grad`, :func:`dequantize_grad` and
 :func:`ef_compress_tree` give the reference's values bit for bit.
 
+On sharded gradients and residuals (ZeRO-1), :func:`ef_compress_tree`
+takes each leaf's scale over the whole leaf: the largest magnitude of its
+shards, over the mesh axes that shard it.
+
 :func:`compressed_psum` is the int8-on-the-wire all-reduce: the
-reference's ``pmax``/``psum`` over a mesh axis become
-``torch.distributed.all_reduce`` (``MAX`` for the scale, ``SUM`` for the
-int32 values) over a process group.
+reference's ``pmax``/``psum`` over a mesh axis become all-reduces
+(``MAX`` for the scale, ``SUM`` for the int32 values) over a process
+group (:mod:`repro_torch.dist`).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch.tree import tree_flatten, tree_leaves
 
 __all__ = ["quantize_grad", "dequantize_grad", "ef_compress_tree",
@@ -26,9 +31,7 @@ __all__ = ["quantize_grad", "dequantize_grad", "ef_compress_tree",
 
 def quantize_grad(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values in [-127, 127], float32 scale) of ``g``."""
-    scale = torch.amax(torch.abs(g)) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return _quantize(g, torch.amax(torch.abs(g)))
 
 
 def dequantize_grad(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -36,18 +39,29 @@ def dequantize_grad(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def ef_compress_tree(grads: Any, residual: Any) -> Tuple[Any, Any]:
+def _quantize(g: torch.Tensor, amax: torch.Tensor):
+    scale = amax / 127.0 + 1e-12
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def ef_compress_tree(grads: Any, residual: Any, *, mesh=None,
+                     axes=None) -> Tuple[Any, Any]:
     """Error-feedback compression over a gradient tree.
 
-    Returns (decompressed grads actually applied, new residual)."""
-    def one(g, r):
-        gf = g.to(torch.float32) + r
-        q, s = quantize_grad(gf)
-        deq = dequantize_grad(q, s)
-        return deq, gf - deq
-
+    Returns (decompressed grads actually applied, new residual). With
+    ``mesh`` and ``axes`` (one tuple of mesh axis names a leaf) the
+    leaves are shards, and each scale is its whole leaf's."""
     flat_g, treedef = tree_flatten(grads)
-    outs = [one(g, r) for g, r in zip(flat_g, tree_leaves(residual))]
+    gf = [g.to(torch.float32) + r
+          for g, r in zip(flat_g, tree_leaves(residual))]
+    amax = [torch.amax(torch.abs(x)) for x in gf]
+    if axes is not None:
+        amax = dist.all_reduce_by_axes(amax, axes, mesh, "max")
+    outs = []
+    for x, a in zip(gf, amax):
+        deq = dequantize_grad(*_quantize(x, a))
+        outs.append((deq, x - deq))
     return (treedef.unflatten([o[0] for o in outs]),
             treedef.unflatten([o[1] for o in outs]))
 
@@ -57,13 +71,13 @@ def compressed_psum(g: torch.Tensor, group=None) -> torch.Tensor:
     world), int8 on the wire: quantize with the largest scale of any
     process, sum the int32 values, dequantize and divide by the group's
     size. Needs an initialised ``torch.distributed`` process group."""
-    import torch.distributed as dist
+    import torch.distributed as tdist
+    if group is None:
+        group = tdist.group.WORLD
     _, scale = quantize_grad(g)
-    scale = scale.clone()
-    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    scale = dist.all_reduce_max(scale, group)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
-    total = q.to(torch.int32)
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-    n = torch.tensor(dist.get_world_size(group), dtype=torch.float32,
+    total = dist.all_reduce(q.to(torch.int32), group)
+    n = torch.tensor(tdist.get_world_size(group), dtype=torch.float32,
                      device=g.device)
     return total.to(torch.float32) * scale / n

@@ -4,8 +4,9 @@
 rematerialised units through the model), :func:`make_serve_step` and
 :func:`make_prefill`; checkpoints in the reference's format
 (:mod:`.checkpoint`); the retrying runner, straggler watch and elastic
-re-mesh (:mod:`.fault`); and the partition rules (:mod:`.sharding`),
-which return specs only: the port runs one unsharded model on one card.
+re-mesh (:mod:`.fault`); and the partition rules with their placement
+over ``torch.distributed`` ranks (:mod:`.sharding`): given a mesh of
+ranks, the train step and checkpoints are sharded.
 """
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault import RetryingRunner, StragglerWatch, elastic_remesh

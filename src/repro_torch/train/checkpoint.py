@@ -17,6 +17,12 @@ The port's copy of ``repro.train.checkpoint``. Layout::
 * publish is a directory rename: a reader never observes a torn step;
 * integrity: per-array CRC32 in the manifest, verified on load;
 * retention: the last 3 steps.
+
+Sharded (``mesh`` over ``torch.distributed`` ranks, with the tree's
+``specs``): save gathers every leaf whole on every rank of the mesh and
+its first rank writes the same format, so a checkpoint does not depend
+on the mesh that wrote it; restore reads whole leaves on every rank and
+slices each to this rank's shard on the *current* mesh.
 """
 from __future__ import annotations
 
@@ -30,20 +36,45 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.tree import tree_flatten
+
+from .sharding import gather_tree, shard_leaf, spec_leaves
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "latest_steps"]
 
 
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.comm is not None
+
+
+def _writer(mesh) -> bool:
+    return not _sharded(mesh) or not any(mesh.comm.coords)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    process_index: int = 0) -> str:
+                    process_index: int = 0, *, mesh=None,
+                    specs=None) -> str:
     """Write ``tree`` as step ``step`` under ``ckpt_dir`` (staged, then
     renamed into place), keep the last 3 steps, and return the step's
-    directory."""
+    directory. With a ``mesh`` of ranks and ``specs`` (the tree's spec
+    tree) every rank of the mesh calls it: the leaves are gathered whole,
+    the mesh's first rank writes, and all wait for the publish."""
+    if _sharded(mesh):
+        tree = gather_tree(mesh, tree, specs)
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _writer(mesh):
+        _write(ckpt_dir, final, step, tree, process_index)
+    if _sharded(mesh):
+        dist.barrier(mesh.comm.axis(mesh.axis_names).group)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, tree: Any,
+           process_index: int) -> None:
     leaves, treedef = tree_flatten(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:09d}")
     stage = final + f".tmp.{uuid.uuid4().hex[:8]}"
     os.makedirs(stage, exist_ok=True)
 
@@ -75,7 +106,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     for s in steps[:-3]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:09d}"),
                       ignore_errors=True)
-    return final
 
 
 def latest_steps(ckpt_dir: str) -> List[int]:
@@ -96,12 +126,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
-                       device=None) -> Tuple[Any, int]:
+                       device=None, *, mesh=None,
+                       specs=None) -> Tuple[Any, int]:
     """Restore step ``step`` (default the newest) into the structure of
     ``like``. Each leaf goes to ``device``, or by default to the device
     of the corresponding leaf of ``like``, and takes that leaf's
     ``requires_grad``. Returns (tree, step); raises ``IOError`` on a CRC
-    mismatch."""
+    mismatch. With a ``mesh`` of ranks and ``specs``, ``like`` holds this
+    rank's shards: each whole leaf is read and sliced by its spec on
+    ``mesh`` (and must come out shaped as ``like``'s)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -113,6 +146,8 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
     if manifest["n_leaves"] != len(leaves_like):
         raise ValueError("checkpoint/tree structure mismatch: "
                          f"{manifest['n_leaves']} vs {len(leaves_like)}")
+    shard_specs = (spec_leaves(specs, len(leaves_like)) if _sharded(mesh)
+                   else None)
     out = []
     with np.load(os.path.join(path, "proc00.npz")) as data:
         for i, leaf in enumerate(leaves_like):
@@ -120,8 +155,14 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
             want = manifest["leaves"][i]
             if zlib.crc32(np.ascontiguousarray(arr).tobytes()) != want["crc"]:
                 raise IOError(f"checkpoint corruption in leaf {i}")
-            t = torch.from_numpy(arr).to(
-                leaf.device if device is None else device)
+            t = torch.from_numpy(arr)
+            if shard_specs is not None:
+                t = shard_leaf(mesh, t, shard_specs[i])
+                if tuple(t.shape) != tuple(leaf.shape):
+                    raise ValueError(f"leaf {i}: shard {tuple(t.shape)} "
+                                     f"of {tuple(arr.shape)} is not the "
+                                     f"{tuple(leaf.shape)} asked for")
+            t = t.to(leaf.device if device is None else device)
             if leaf.requires_grad:
                 t.requires_grad_()
             out.append(t)

@@ -28,7 +28,14 @@ use, so every retry in the system is bounded and counted the same way.
 * **elastic_remesh** — on a shrunk/grown device set, rebuild the mesh
   with the survivors (largest (data, model) factorization that preserves
   the model-parallel degree if possible), then re-lower the step and
-  restore the mesh-agnostic checkpoint onto the new topology.
+  restore the mesh-agnostic checkpoint onto the new topology. Given the
+  surviving ``torch.distributed`` ranks it makes their process groups
+  (only the survivors take part).
+
+On a mesh of ranks the runner checkpoints and restores sharded (its
+``mesh`` and ``specs``). The ranks agree after each phase of a step
+whether any of them failed, so a fault on one rank restores every rank,
+from the same step: the one the mesh's first rank finds newest.
 """
 from __future__ import annotations
 
@@ -37,9 +44,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from repro_torch import obs
+from repro_torch import dist, obs
 from repro_torch.faults.policy import RetryPolicy
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, mesh_over_ranks
 
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 
@@ -109,11 +116,28 @@ def choose_mesh_shape(n_devices: int, model_parallel: int
 
 def elastic_remesh(devices, model_parallel: int) -> Mesh:
     """A (data, model) :class:`Mesh` over the surviving ``devices``
-    (shape from :func:`choose_mesh_shape`)."""
+    (shape from :func:`choose_mesh_shape`). Under a running process
+    group, ``devices`` are the surviving global ranks: each survivor
+    calls this, and gets the mesh with its process groups."""
     dp, tp = choose_mesh_shape(len(devices), model_parallel)
     devices = list(devices)
+    if dist.is_initialized() and all(isinstance(d, int) for d in devices):
+        if dist.rank() not in devices:
+            raise ValueError(f"rank {dist.rank()} is not a survivor "
+                             f"{devices}")
+        return mesh_over_ranks((dp, tp), ("data", "model"), devices,
+                               local_sync=True)
     grid = tuple(tuple(devices[i * tp:(i + 1) * tp]) for i in range(dp))
     return Mesh((dp, tp), ("data", "model"), grid)
+
+
+def _attempt(fn: Callable[[], None]) -> Optional[Exception]:
+    """``fn()``'s exception, or None."""
+    try:
+        fn()
+    except Exception as e:   # noqa: BLE001 — any fault retries
+        return e
+    return None
 
 
 @dataclass
@@ -136,54 +160,111 @@ class RetryingRunner:
     watch: StragglerWatch = field(default_factory=StragglerWatch)
     on_failure: Optional[Callable[[Exception, int], None]] = None
     policy: Optional[RetryPolicy] = None
+    mesh: Any = None        # a mesh of ranks: checkpoints sharded by specs
+    specs: Any = None       # of {"params": ..., "opt": ...}
 
     def __post_init__(self):
         if self.policy is None:
             self.policy = RetryPolicy(max_retries=self.max_retries,
                                       scope="train.retry")
 
+    def _group(self):
+        """The process group over every rank of the mesh (None: one
+        process)."""
+        comm = getattr(self.mesh, "comm", None)
+        return None if comm is None else comm.axis(comm.axis_names).group
+
+    def latest(self) -> Optional[int]:
+        """The newest step, as the mesh's first rank finds it."""
+        last = latest_step(self.ckpt_dir)
+        group = self._group()
+        if group is None:
+            return last
+        last = dist.broadcast_int(-1 if last is None else last, group)
+        return None if last < 0 else last
+
+    def _agree(self, err: Optional[Exception], step: int
+               ) -> Optional[Exception]:
+        """Whether any rank of the mesh failed: this rank's ``err``, or,
+        where only another rank failed, an error that says so; None when
+        every rank went through. Every rank calls it at the same point
+        of a step, so all of them restore together."""
+        group = self._group()
+        if group is None:
+            return err
+        failed = dist.all_gather_ints(int(err is not None), group)
+        if err is None and any(failed):
+            ranks = [r for r, f in enumerate(failed) if f]
+            err = RuntimeError(f"step {step} failed on mesh rank(s) "
+                               f"{ranks}")
+        return err
+
     def run(self, state: Tuple, start_step: int, num_steps: int,
             inject_failure: Optional[Callable[[int], None]] = None
             ) -> Tuple[Tuple, Dict]:
         """state = (params, opt_state, residual). Returns final state and
-        run metrics. ``inject_failure`` is the test hook."""
+        run metrics. ``inject_failure`` is the test hook.
+
+        On a mesh of ranks the ranks agree after each phase of a step
+        (taking the batch, the step itself, the checkpoint) whether any
+        of them failed, and then every rank restores and replays
+        together; so a fault that one rank raises before or after the
+        step's collectives is retried on the whole mesh. A rank that
+        fails inside a collective leaves the others waiting in it: they
+        end with the process group's timeout error."""
         params, opt_state, residual = state
         step = start_step
         retries = 0
         metrics: Dict[str, Any] = {"straggler_events": 0, "restarts": 0}
         while step < start_step + num_steps:
-            try:
+            out: Dict[str, Any] = {}
+
+            def take_batch():
                 if inject_failure is not None:
                     inject_failure(step)
-                t0 = time.monotonic()
-                batch = self.batch_fn(step)
-                params, opt_state, residual, m = self.step_fn(
-                    params, opt_state, residual, batch)
-                loss = float(m["loss"])     # waits for the card
-                wall = time.monotonic() - t0
-                if self.watch.observe_step(wall):
+                out["t0"] = time.monotonic()
+                out["batch"] = self.batch_fn(step)
+
+            def take_step():
+                out["state"] = self.step_fn(params, opt_state, residual,
+                                            out.pop("batch"))
+                out["loss"] = float(out["state"][3]["loss"])  # waits
+                out["wall"] = time.monotonic() - out["t0"]
+
+            err = self._agree(_attempt(take_batch), step)
+            if err is None:
+                err = self._agree(_attempt(take_step), step)
+            if err is None:
+                params, opt_state, residual, _ = out.pop("state")
+                if self.watch.observe_step(out["wall"]):
                     metrics["straggler_events"] += 1
-                    logger.warning("straggler step %d: %.2fs", step, wall)
-                metrics["loss"] = loss
+                    logger.warning("straggler step %d: %.2fs", step,
+                                   out["wall"])
+                metrics["loss"] = out["loss"]
                 step += 1
                 retries = 0
                 if step % self.ckpt_every == 0:
-                    save_checkpoint(self.ckpt_dir, step,
-                                    {"params": params, "opt": opt_state})
-            except Exception as e:   # noqa: BLE001 — any fault retries
-                retries += 1
-                metrics["restarts"] += 1
-                if self.on_failure:
-                    self.on_failure(e, step)
-                if retries > self.policy.max_retries:
-                    self.policy.note_exhausted()
-                    raise
-                self.policy.note_retry(retries - 1)
-                logger.warning("step %d failed (%s); restoring", step, e)
-                last = latest_step(self.ckpt_dir)
-                if last is not None:
-                    restored, _ = restore_checkpoint(
-                        self.ckpt_dir, {"params": params, "opt": opt_state})
-                    params, opt_state = restored["params"], restored["opt"]
-                    step = last
+                    err = self._agree(_attempt(lambda: save_checkpoint(
+                        self.ckpt_dir, step,
+                        {"params": params, "opt": opt_state},
+                        mesh=self.mesh, specs=self.specs)), step)
+            if err is None:
+                continue
+            out.clear()
+            retries += 1
+            metrics["restarts"] += 1
+            if self.on_failure:
+                self.on_failure(err, step)
+            if retries > self.policy.max_retries:
+                self.policy.note_exhausted()
+                raise err
+            self.policy.note_retry(retries - 1)
+            logger.warning("step %d failed (%s); restoring", step, err)
+            last = self.latest()
+            if last is not None:
+                restored, _ = restore_checkpoint(
+                    self.ckpt_dir, {"params": params, "opt": opt_state},
+                    step=last, mesh=self.mesh, specs=self.specs)
+                params, opt_state = restored["params"], restored["opt"]
+                step = last
         return (params, opt_state, residual), metrics

@@ -20,21 +20,33 @@ The scheme is standard Megatron-style TP + (pod x data) DP + EP:
 A spec is a plain tuple with one entry a dimension: an axis name, a tuple
 of axis names, or ``None`` (the reference's ``PartitionSpec``); the
 ``*_shardings`` functions return a tree of specs shaped as their input
-(the reference wraps each in a ``NamedSharding``). The port runs on one
-card, where every spec resolves to replication and nothing is placed;
-applying the specs through ``torch.distributed`` waits for a multi-card
-run.
+(the reference wraps each in a ``NamedSharding``).
+
+Placement, on a mesh laid over ``torch.distributed`` ranks
+(:func:`repro_torch.launch.mesh.make_host_mesh` under a process group):
+:func:`shard_leaf`/:func:`shard_tree` slice a whole leaf to this rank's
+shard by its spec (``jax.device_put`` with a ``NamedSharding``), and
+:func:`gather_leaf`/:func:`gather_tree` take the whole leaf back
+(``jax.device_get``). On a mesh without process groups (one process)
+both are the identity. :func:`train_state_specs` gives the specs of a
+train step's parameters, AdamW state and error-feedback residual.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
+from repro_torch import dist
 from repro_torch.launch.mesh import Mesh, abstract_mesh
-from repro_torch.tree import DictKey, tree_map_with_path
+from repro_torch.tree import (DictKey, tree_flatten, tree_flatten_with_path,
+                               tree_map_with_path)
 
 __all__ = ["param_shardings", "batch_shardings", "state_shardings",
            "zero1_shardings", "logits_sharding", "spec_for_leaf",
-           "zero1_spec", "shard_shape", "abstract_mesh"]
+           "zero1_spec", "shard_shape", "abstract_mesh", "spec_axes",
+           "shard_leaf", "shard_tree", "gather_leaf", "gather_tree",
+           "train_state_specs", "is_spec", "spec_leaves"]
 
 Spec = Tuple[Any, ...]
 
@@ -227,3 +239,105 @@ def shard_shape(mesh: Mesh, shape: Tuple[int, ...], spec: Spec
                              f"split {n} ways under {spec}")
         out.append(dim // n)
     return tuple(out)
+
+
+# ------------------------------------------------------------ placement ----
+def is_spec(x) -> bool:
+    """True for a spec (a plain tuple; not an ``OptState``), the leaf of
+    a spec tree."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
+
+
+def _dim_axes(spec: Spec, i: int) -> Tuple[str, ...]:
+    ax = spec[i] if i < len(spec) else None
+    if ax is None:
+        return ()
+    return ax if isinstance(ax, tuple) else (ax,)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis that ``spec`` shards over, in the spec's order."""
+    out = []
+    for i in range(len(spec)):
+        out.extend(a for a in _dim_axes(spec, i) if a not in out)
+    return tuple(out)
+
+
+def _mesh_order(mesh: Mesh, axes) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in axes)
+
+
+def shard_leaf(mesh: Mesh, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``x`` under ``spec``: along
+    each sharded dimension, the part at this rank's index over that
+    dimension's axes (a contiguous copy, so the whole leaf can go). The
+    identity on a mesh without process groups."""
+    if mesh.comm is None:
+        return x
+    out = x
+    for i in range(x.ndim):
+        axes = _dim_axes(spec, i)
+        if not axes:
+            continue
+        if _mesh_order(mesh, axes) != tuple(axes):
+            raise ValueError(f"spec {spec} names axes out of the mesh's "
+                             f"order {mesh.axis_names}")
+        ax = mesh.comm.axis(axes)
+        if x.shape[i] % ax.size:
+            raise ValueError(f"dimension {i} of {tuple(x.shape)} does not "
+                             f"split {ax.size} ways under {spec}")
+        n = x.shape[i] // ax.size
+        out = out.narrow(i, ax.index * n, n)
+    if out is x:
+        return x
+    return out.detach().clone().requires_grad_(x.requires_grad)
+
+
+def gather_leaf(mesh: Mesh, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The whole leaf of this rank's shard ``x`` under ``spec`` (every
+    rank of the mesh calls it, in the same order): an all-gather along
+    each sharded dimension over its axes. The identity on a mesh without
+    process groups."""
+    if mesh.comm is None:
+        return x
+    out = x.detach()
+    for i in range(x.ndim):
+        axes = _dim_axes(spec, i)
+        if axes:
+            out = dist.all_gather(out, mesh.comm.axis(axes).group, dim=i)
+    return out
+
+
+def spec_leaves(specs, n: int) -> list:
+    """The specs of a spec tree in JAX's leaf order; raises unless there
+    are ``n``."""
+    leaves = [s for _, s in tree_flatten_with_path(specs,
+                                                   is_leaf=is_spec)[0]]
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} specs for {n} leaves")
+    return leaves
+
+
+def shard_tree(mesh: Mesh, tree: Any, specs: Any) -> Any:
+    """:func:`shard_leaf` over a tree and its spec tree."""
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([shard_leaf(mesh, x, s) for x, s in zip(
+        leaves, spec_leaves(specs, len(leaves)))])
+
+
+def gather_tree(mesh: Mesh, tree: Any, specs: Any) -> Any:
+    """:func:`gather_leaf` over a tree and its spec tree."""
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([gather_leaf(mesh, x, s) for x, s in zip(
+        leaves, spec_leaves(specs, len(leaves)))])
+
+
+def train_state_specs(mesh: Mesh, params: Any):
+    """``(param specs, OptState specs, residual specs)`` of a train step
+    over ``mesh`` for whole parameters shaped as ``params``: parameters
+    by the rules, AdamW's ``m``/``v`` and the error-feedback residual by
+    ZeRO-1 (the reference's ``jit_for``), the step count replicated."""
+    from repro_torch.optim.adamw import OptState
+    ps = param_shardings(mesh, params)
+    zs = zero1_shardings(mesh, params)
+    return ps, OptState(m=zs, v=zs, count=()), zs

@@ -1,0 +1,405 @@
+"""What each rank runs in ``tests/test_torch_sharded.py`` (no JAX here:
+a spawned rank imports this module).
+
+:func:`step_cases` holds the sharded train step against the unsharded
+one on every rank, both from the reference's initial parameters (a
+pickled numpy tree, through ``convert.params_from_numpy``): placed leaf
+shapes, the forward's logits, the loss and gradients of one batch, then
+``steps`` AdamW steps (loss, grad_norm, lr each step; parameters, ``m``,
+``v`` and the residual, gathered, after the last). It returns the worst
+errors, which the test holds to its tolerances, and for the cases the
+test also holds against the reference's sharded step, the sharded run's
+metrics and gathered parameters.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from repro_torch import dist
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.data import DataConfig, make_batch_fn
+from repro_torch.engine import Engine
+from repro_torch.launch.mesh import mesh_over_ranks
+from repro_torch.models import build_model
+from repro_torch.models.model import abstract_params
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import make_train_step
+from repro_torch.train.sharding import (gather_leaf, shard_leaf,
+                                        shard_shape, spec_leaves,
+                                        train_state_specs)
+from repro_torch.tree import tree_flatten, tree_leaves
+
+AXES = ("data", "model")
+OPT = dict(lr=3e-3, warmup_steps=2, total_steps=60)
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| in float64 (the leaf's norm as the measure)."""
+    a, b = a.detach().double(), b.detach().double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def stream(cfg, seq: int = 16, batch: int = 8, uneven: bool = False):
+    """The deterministic batches of ``cfg`` (as torch tensors). With
+    ``uneven`` the first half of the rows loses most of its labels (-1),
+    so data ranks mask different numbers of tokens."""
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = (cfg.n_patches, cfg.d_model)
+    if cfg.family == "encdec":
+        extra["frames"] = (cfg.enc_frames, cfg.d_model)
+    fn = make_batch_fn(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch), extra)
+
+    def batch_at(step):
+        b = {k: torch.from_numpy(v) for k, v in fn(step).items()}
+        if uneven:
+            b["labels"] = b["labels"].clone()
+            b["labels"][: batch // 2, 3:] = -1
+            b["labels"][batch // 2, :2] = -1
+        return b
+    return batch_at
+
+
+def _unsharded_grads(model, params, batch):
+    leaves = tree_leaves(params)
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach() for g in grads]
+
+
+def _sharded_grads(model, mesh, params, batch, plan_specs):
+    """The loss and the gathered whole gradients of one batch on the
+    mesh: each data rank's rows, summed over the data axis."""
+    dp = mesh.comm.axis(("data",))
+    rows = batch["tokens"].shape[0] // dp.size
+    mine = {k: v[dp.index * rows:(dp.index + 1) * rows]
+            for k, v in batch.items()}
+    leaves = tree_leaves(params)
+    loss = model.loss(params, mine, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    loss = dist.all_reduce(loss.detach().clone(), dp.group)
+    out = []
+    for g, spec in zip(grads, plan_specs):
+        g = dist.all_reduce(g.detach().clone(), dp.group)
+        out.append(gather_leaf(mesh, g, spec))
+    return float(loss), out
+
+
+def reference_init(init_dir: str, arch: str) -> list:
+    """The leaves (JAX's order) of the reference's ``init_fn(PRNGKey(0))``
+    for ``arch``, pickled as a numpy tree in ``init_dir``, as the port's
+    tensors."""
+    with open(os.path.join(init_dir, f"{arch}.pkl"), "rb") as f:
+        return tree_leaves(params_from_numpy(pickle.load(f)))
+
+
+@torch.no_grad()
+def _start_from(mesh, whole: list, params, specs=None) -> None:
+    """Write the whole leaves ``whole`` (or, with ``specs``, this rank's
+    shards of them) into ``params``."""
+    leaves = tree_leaves(params)
+    if len(leaves) != len(whole):
+        raise ValueError(f"{len(whole)} leaves for {len(leaves)}")
+    for k, (x, w) in enumerate(zip(leaves, whole)):
+        x.copy_(w if specs is None else shard_leaf(mesh, w, specs[k]))
+
+
+def step_cases(rank: int, cases, init_dir: str, keep=(), steps: int = 3):
+    """Run each case ``(arch, (dp, tp), microbatches, compress, remat,
+    uneven)`` from the reference's parameters in ``init_dir``; returns,
+    for each, None on a rank outside its mesh, else a dict of the worst
+    relative errors and the shape check. For a case in ``keep`` the
+    mesh's first rank adds the sharded run's ``trace`` (loss,
+    grad_norm, lr each step) and its gathered ``final`` parameters."""
+    cpu = Engine("torch:device=cpu")
+    out = []
+    for case in cases:
+        arch, shape, microbatches, compress, remat, uneven = case
+        mesh = mesh_over_ranks(shape, AXES, list(range(shape[0] * shape[1])))
+        if mesh.comm is None:
+            out.append(None)
+            continue
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg, remat=remat, engine=cpu)
+        opt = AdamWConfig(**OPT)
+        base, base_init, _ = make_train_step(
+            model, opt, microbatches=microbatches, compress_grads=compress)
+        step, init_fn, _ = make_train_step(
+            model, opt, mesh, microbatches=microbatches,
+            compress_grads=compress)
+        ref = list(base_init(0))
+        got = list(init_fn(0))
+        whole = abstract_params(cfg, torch.float32)
+        ps, os_, rs = train_state_specs(mesh, whole)
+        pspecs = spec_leaves(ps, len(tree_leaves(whole)))
+        zspecs = spec_leaves(rs, len(pspecs))
+        start = reference_init(init_dir, arch)
+        _start_from(mesh, start, ref[0])
+        _start_from(mesh, start, got[0], pspecs)
+        del start
+        shapes_ok = all(
+            tuple(x.shape) == shard_shape(mesh, tuple(w.shape), s)
+            for x, w, s in zip(tree_leaves(got[0]), tree_leaves(whole),
+                               pspecs))
+        shapes_ok &= all(
+            tuple(x.shape) == shard_shape(mesh, tuple(w.shape), s)
+            for tree in (got[1].m, got[1].v) + ((got[2],) if compress
+                                                 else ())
+            for x, w, s in zip(tree_leaves(tree), tree_leaves(whole),
+                               zspecs))
+        batch_at = stream(cfg, uneven=uneven)
+        res = {"shapes_ok": bool(shapes_ok), "logits": 0.0, "grad": 0.0,
+               "loss": 0.0, "grad_norm": 0.0, "lr": 0.0}
+
+        b0 = batch_at(0)
+        if cfg.family == "decoder":
+            want, _ = model.forward(ref[0], b0["tokens"])
+            logits, _ = model.forward(got[0], b0["tokens"], mesh=mesh)
+            tp = mesh.comm.axis(("model",))
+            if logits.shape[-1] != want.shape[-1]:
+                logits = dist.all_gather(logits, tp.group, dim=-1)
+            res["logits"] = rel(logits, want)
+        wl, wg = _unsharded_grads(model, ref[0], b0)
+        gl, gg = _sharded_grads(model, mesh, got[0], b0, pspecs)
+        res["loss"] = abs(gl - wl) / abs(wl)
+        res["grad"] = max(rel(a, b) for a, b in zip(gg, wg))
+
+        trace = []
+        for s in range(steps):
+            b = batch_at(s)
+            *ref, rm = base(*ref, b)
+            *got, gm = step(*got, b)
+            trace.append({k: float(gm[k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
+            for k in ("loss", "grad_norm", "lr"):
+                w = float(rm[k])
+                res[k] = max(res[k], abs(float(gm[k]) - w) / abs(w))
+        pairs = {"params": (got[0], ref[0], pspecs),
+                 "m": (got[1].m, ref[1].m, zspecs),
+                 "v": (got[1].v, ref[1].v, zspecs)}
+        if compress:
+            pairs["residual"] = (got[2], ref[2], zspecs)
+        for name, (g_tree, r_tree, specs) in pairs.items():
+            res[name], off, total = 0.0, 0, 0
+            for x, y, s in zip(tree_leaves(g_tree), tree_leaves(r_tree),
+                               specs):
+                x = gather_leaf(mesh, x, s)
+                res[name] = max(res[name], rel(x, y))
+                diff = (x.detach() - y.detach()).abs()
+                # an element off: beyond float noise of the leaf; for the
+                # residual (within half a quantum of 0), half a quantum
+                cut = 0.5 if name == "residual" else 1e-5
+                off += int((diff > cut * y.detach().abs().max()).sum())
+                total += y.numel()
+            res[name + "_off"] = off / total
+        res["count"] = int(got[1].count)
+        if tuple(case) in keep:
+            final = [gather_leaf(mesh, x, sp).numpy().copy()
+                     for x, sp in zip(tree_leaves(got[0]), pspecs)]
+            if not any(mesh.comm.coords):
+                res["trace"], res["final"] = trace, final
+        out.append(res)
+    return out
+
+
+def psum_case(rank: int, stacked: np.ndarray):
+    """``compressed_psum`` of row ``rank`` of ``stacked`` over the world,
+    and over ranks {0, 1} (a group of two)."""
+    import torch.distributed as tdist
+    from repro_torch.optim import compressed_psum
+    pair = tdist.new_group([0, 1])
+    g = torch.from_numpy(stacked[rank])
+    world = compressed_psum(g).numpy()
+    two = (compressed_psum(torch.from_numpy(stacked[rank % 2 + 0]), pair
+                           ).numpy() if rank < 2 else None)
+    return world, two
+
+
+def compress_case(rank: int):
+    """Error feedback on ZeRO-1 shards over (2, 2) against the whole
+    leaves: the applied gradients and residuals, gathered, and the
+    unsharded ones (every rank draws the same whole leaves)."""
+    from repro_torch.optim import ef_compress_tree
+    mesh = mesh_over_ranks((2, 2), AXES)
+    cfg = get_config("qwen3-8b", smoke=True)
+    whole = abstract_params(cfg, torch.float32)
+    _, _, zs = train_state_specs(mesh, whole)
+    specs = spec_leaves(zs, len(tree_leaves(whole)))
+    gen = torch.Generator().manual_seed(5)
+    grads = [torch.randn(w.shape, generator=gen) * 1e-2
+             for w in tree_leaves(whole)]
+    resid = [torch.randn(w.shape, generator=gen) * 1e-4
+             for w in tree_leaves(whole)]
+    from repro_torch.train.sharding import shard_leaf, spec_axes
+    sg = [shard_leaf(mesh, g, s) for g, s in zip(grads, specs)]
+    sr = [shard_leaf(mesh, r, s) for r, s in zip(resid, specs)]
+    got = ef_compress_tree(sg, sr, mesh=mesh,
+                           axes=[spec_axes(s) for s in specs])
+    want = ef_compress_tree(grads, resid)
+    diff = 0.0
+    for g_list, w_list in zip(got, want):
+        for x, y, s in zip(g_list, w_list, specs):
+            diff = max(diff, float((gather_leaf(mesh, x, s) - y).abs().max()))
+    return diff
+
+
+def _flat(tree):
+    return [x.detach().numpy().copy() for x in tree_flatten(tree)[0]]
+
+
+def checkpoint_cases(rank: int, root: str, ref_dir: str):
+    """Save on (2, 2) after one step; restore on (1, 2) over ranks 0-1
+    and on (1, 1) over rank 0 (unsharded); restore the reference's
+    checkpoint in ``ref_dir`` on (2, 2). Returns the whole trees each
+    restore gives (rank 0), and the saved ones."""
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    cpu = Engine("torch:device=cpu")
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = build_model(cfg, engine=cpu)
+    opt = AdamWConfig(**OPT)
+    whole = abstract_params(cfg, torch.float32)
+    out = {}
+
+    def specs_on(mesh):
+        ps, os_, _ = train_state_specs(mesh, whole)
+        return {"params": ps, "opt": os_}
+
+    def gathered(mesh, tree, specs):
+        n = len(tree_leaves(tree))
+        return [gather_leaf(mesh, x, s).numpy().copy()
+                for x, s in zip(tree_leaves(tree), spec_leaves(specs, n))]
+
+    m22 = mesh_over_ranks((2, 2), AXES)
+    m12 = mesh_over_ranks((1, 2), AXES, [0, 1])
+    step, init_fn, _ = make_train_step(model, opt, m22)
+    p, o, r = init_fn(0)
+    p, o, r, _ = step(p, o, r, stream(cfg)(0))
+    tree = {"params": p, "opt": o}
+    save_checkpoint(root, 1, tree, mesh=m22, specs=specs_on(m22))
+    out["saved"] = gathered(m22, tree, specs_on(m22))
+
+    if m12.comm is not None:
+        _, init12, _ = make_train_step(model, opt, m12)
+        p12, o12, _ = init12(0)
+        back, s = restore_checkpoint(root, {"params": p12, "opt": o12},
+                                     mesh=m12, specs=specs_on(m12))
+        out["on_1x2"] = gathered(m12, back, specs_on(m12))
+        out["on_1x2_step"] = s
+        out["requires_grad"] = all(x.requires_grad
+                                   for x in tree_leaves(back["params"]))
+    if rank == 0:
+        _, init11, _ = make_train_step(model, opt)
+        p11, o11, _ = init11(0)
+        back, _ = restore_checkpoint(root, {"params": p11, "opt": o11})
+        out["on_1x1"] = _flat(back)
+
+    like = {"params": p, "opt": o}
+    back, s = restore_checkpoint(ref_dir, like, mesh=m22,
+                                 specs=specs_on(m22))
+    out["reference_on_2x2"] = gathered(m22, back, specs_on(m22))
+    out["shard_shapes"] = [tuple(x.shape) for x in tree_leaves(back)]
+    out["like_shapes"] = [tuple(x.shape) for x in tree_leaves(like)]
+    return out
+
+
+def refusal_cases(rank: int):
+    """What sharding raises for: tensor parallelism (1, 2) on the block
+    kinds not ported, PIM scopes on (2, 1). ``{case: "Type: message"}``
+    on ranks 0-1."""
+    import dataclasses
+    cpu = Engine("torch:device=cpu")
+    tp = mesh_over_ranks((1, 2), AXES, [0, 1])
+    dp = mesh_over_ranks((2, 1), AXES, [0, 1])
+    if tp.comm is None:
+        return None
+    out = {}
+    runs = [(a, tp, get_config(a, smoke=True))
+            for a in ("deepseek-moe-16b", "recurrentgemma-9b", "rwkv6-7b",
+                      "pixtral-12b", "whisper-small")]
+    runs.append(("pim", dp, dataclasses.replace(
+        get_config("qwen3-8b", smoke=True), pim_linear_mode="pim")))
+    for name, mesh, cfg in runs:
+        model = build_model(cfg, engine=cpu)
+        batch = stream(cfg)(0)
+        try:
+            model.loss(model.init(0), batch, mesh)
+            out[name] = "ran"
+        except Exception as e:   # noqa: BLE001 -- reported to the test
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def runner_case(rank: int, root: str, fail_rank: int = 3,
+                fail_at: int = 3, steps: int = 5):
+    """``RetryingRunner`` on (2, 2), checkpointing every 2 steps, run
+    twice from the same parameters: once uninterrupted, once with mesh
+    rank ``fail_rank`` alone raising before step ``fail_at``. Returns
+    each run's ``(step, loss)`` for every step taken, its restarts, and
+    (on rank 0) its gathered final parameters."""
+    from repro_torch.train import RetryingRunner
+    cpu = Engine("torch:device=cpu")
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = build_model(cfg, engine=cpu)
+    mesh = mesh_over_ranks((2, 2), AXES)
+    step, init_fn, _ = make_train_step(model, AdamWConfig(**OPT), mesh)
+    whole = abstract_params(cfg)
+    ps, os_, _ = train_state_specs(mesh, whole)
+    pspecs = spec_leaves(ps, len(tree_leaves(whole)))
+    batch_at = stream(cfg)
+    out = {}
+    for name, fail in (("whole", None), ("failed", fail_at)):
+        seen, taken, fired = [], {}, []
+
+        def batch_fn(s):
+            taken["step"] = s
+            return batch_at(s)
+
+        def step_fn(*state):
+            new = step(*state)
+            seen.append((taken["step"], float(new[3]["loss"])))
+            return new
+
+        def inject(s):
+            if rank == fail_rank and s == fail and not fired:
+                fired.append(s)
+                raise RuntimeError(f"simulated loss of rank {rank}")
+
+        runner = RetryingRunner(step_fn=step_fn, batch_fn=batch_fn,
+                                ckpt_dir=os.path.join(root, name),
+                                ckpt_every=2, mesh=mesh,
+                                specs={"params": ps, "opt": os_})
+        (params, _, _), metrics = runner.run(init_fn(0), 0, steps,
+                                             inject_failure=inject)
+        final = [gather_leaf(mesh, x, sp).numpy().copy()
+                 for x, sp in zip(tree_leaves(params), pspecs)]
+        out[name] = {"seen": seen, "restarts": metrics["restarts"],
+                     "final": final if rank == 0 else None}
+    return out
+
+
+def misc_cases(rank: int, stacked, root: str, ref_dir: str):
+    """The world-4 group of ``tests/test_torch_sharded.py``'s other
+    checks."""
+    return {"psum": psum_case(rank, stacked),
+            "compress": compress_case(rank),
+            "ckpt": checkpoint_cases(rank, root, ref_dir),
+            "refusals": refusal_cases(rank),
+            "runner": runner_case(rank, os.path.join(root, "runner"))}
+
+
+def elastic_case(rank: int, init_ckpt: str, ckpt_dir: str):
+    """The elastic schedule (``repro_torch.launch.elastic``) of
+    deepseek-7b smoke on the CPU: (4, 2), then the first 4 ranks re-meshed
+    to (2, 2), from the reference's initial parameters."""
+    from repro_torch.launch.elastic import run_schedule
+    model = build_model(get_config("deepseek-7b", smoke=True),
+                        engine=Engine("torch:device=cpu"))
+    return run_schedule(model, model_parallel=2, survivors=4, steps=4,
+                        more=3, ckpt_dir=ckpt_dir, init_ckpt=init_ckpt)

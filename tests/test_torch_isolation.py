@@ -117,3 +117,71 @@ def test_kernel_build_is_lazy():
     assert {"crossbar_step.cu", "bitserial_matmul.cu"} <= names
     assert _build.load_library.cache_info().currsize == 0 or \
         torch.cuda.is_available()
+
+
+# The sharded-training modules of the port, imported alone: the process
+# group layer and every module it changed.
+_DIST_PROBE = r"""
+import sys
+import repro_torch.dist, repro_torch.launch.mesh, repro_torch.launch.train
+import repro_torch.launch.elastic, repro_torch.train.step
+import repro_torch.train.sharding, repro_torch.train.checkpoint
+import repro_torch.train.fault, repro_torch.optim.adamw
+import repro_torch.optim.compress, repro_torch.models.blocks
+import repro_torch.models.transformer, repro_torch.models.model
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print(",".join(leaked))
+"""
+
+
+def test_dist_and_sharded_modules_load_no_reference_package():
+    """``repro_torch.dist`` and the modules sharded training changed load
+    no JAX and nothing of ``repro``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _DIST_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.splitlines()
+    assert out == [""], f"repro_torch loaded {out}"
+
+
+def test_dist_without_a_process_group():
+    """One process: every collective over a ``None`` group (an axis of
+    one rank) is the identity, a mesh without process groups gives
+    size-1 axes, and ``init_distributed`` refuses a
+    backend it does not know, nccl without CUDA, and a missing
+    ``torch.distributed.run`` environment, rather than choosing
+    another."""
+    from repro_torch import dist
+    from repro_torch.launch.mesh import make_host_mesh
+    x = torch.arange(6.0).reshape(2, 3).requires_grad_()
+    assert dist.all_reduce(x.detach(), None) is not None
+    for f in (lambda t: dist.all_gather(t, None, 1),
+              lambda t: dist.reduce_scatter(t, None, 1),
+              lambda t: dist.copy_to_parallel(t, None),
+              lambda t: dist.reduce_from_parallel(t, None),
+              lambda t: dist.gather_from_parallel(t, None, 0)):
+        assert torch.equal(f(x), x)
+    assert dist.broadcast_int(7, None) == 7
+    assert dist.all_gather_ints(3, None) == [3]
+    dist.barrier(None)
+    assert not dist.is_initialized() and dist.world_size() == 1
+    mesh = make_host_mesh()
+    assert mesh.comm is None and mesh.size == 1
+    assert dist.mesh_axis(mesh, ("data",)).size == 1
+    with pytest.raises(ValueError, match="backend"):
+        dist.init_distributed("mpi")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dist.init_distributed("nccl")
+    env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE",
+                                          "MASTER_ADDR", "MASTER_PORT")
+           if k in os.environ}
+    try:
+        with pytest.raises(RuntimeError, match="torch.distributed.run"):
+            dist.init_distributed("gloo")
+    finally:
+        os.environ.update(env)
+    assert not dist.is_initialized()

@@ -2,9 +2,16 @@
 smoke runs through ``--pim-backend torch:device=cpu`` with and without
 ``--ckpt-dir`` (resume included), its trace and metrics files, the
 losses against a direct run of ``make_train_step`` on the same stream,
-and its refusals: no CUDA without a CPU spec, ``--model-parallel`` other
-than 1."""
+its refusals (no CUDA without a CPU spec, a ``--model-parallel`` the
+ranks do not divide), and a sharded run: two ranks under
+``torch.distributed.run`` with gloo and ``--model-parallel 2`` give the
+one-rank run's losses."""
 import json
+import os
+import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,12 +24,14 @@ from repro_torch.data import DataConfig, make_batch_fn  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.model import abstract_params  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train import latest_step, make_train_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.infra
 
+SRC = Path(__file__).resolve().parents[1] / "src"
 CPU_ARGS = ["--arch", "qwen3-8b", "--smoke", "--pim-backend",
             "torch:device=cpu", "--seq-len", "32", "--global-batch", "4"]
 
@@ -100,5 +109,55 @@ def test_launcher_needs_cuda_unless_asked_for_the_cpu():
 
 
 def test_launcher_refuses_model_parallel():
+    """Without a process group there is one rank: ``--model-parallel 2``
+    does not divide it, and the launcher says to run under
+    ``torch.distributed.run``."""
     with pytest.raises(SystemExit, match="model-parallel"):
         launcher.main(CPU_ARGS + ["--model-parallel", "2"])
+
+
+def test_launcher_sharded_matches_one_rank(tmp_path):
+    """Two ranks under ``python -m torch.distributed.run`` on the CPU
+    (gloo), on a (1, 2) mesh, three steps with two
+    microbatches: losses, grad norms and lr within 1e-5 relative of the
+    one-rank run (only the order of float32 sums changes), and each
+    rank's placed parameter and AdamW bytes exactly the dry-run's count
+    for the mesh."""
+    from repro_torch.launch.dryrun import train_state_bytes
+    from repro_torch.launch.mesh import abstract_mesh
+    model_parallel = 2
+    args = CPU_ARGS + ["--steps", "3", "--microbatches", "2",
+                       "--warmup", "2"]
+    one = launcher.main(args)
+    out = tmp_path / "summary.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    # A session of its own: torchrun's signals stay in its group, and a
+    # timeout ends it with its ranks.
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train"]
+        + args + ["--model-parallel", str(model_parallel),
+                  "--summary", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    got = json.loads(out.read_text())
+    dp = 2 // model_parallel
+    assert got["mesh"] == {"data": dp, "model": model_parallel}
+    for k, want in (("losses", one.losses), ("grad_norms", one.grad_norms),
+                    ("lrs", one.lrs)):
+        np.testing.assert_allclose(got[k], want, rtol=1e-5)
+    cfg = get_config("qwen3-8b", smoke=True)
+    expect = train_state_bytes(cfg, abstract_mesh(
+        (dp, model_parallel), ("data", "model")),
+        params=abstract_params(cfg, torch.float32))
+    assert got["placed_bytes"] == [expect, expect]
+    assert one.placed_bytes == [train_state_bytes(
+        cfg, abstract_mesh((1, 1), ("data", "model")),
+        params=abstract_params(cfg, torch.float32))]
