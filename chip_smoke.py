@@ -181,16 +181,34 @@ and raises on any failure. Phases, one line each:
     on (2, 2) for 4 steps, checkpoint, 2 survivors re-meshed to (1, 2),
     restored, 3 more steps, against the card's uninterrupted (2, 2) run
     (1e-5 relative);
-28. one JSON line describing each kernel;
-29. ``{"ok": true, "device": {...}}`` as the last line.
+28. ``serve_sharded``: the serving launcher's model mode under ``python
+    -m torch.distributed.run`` with ``--dist-backend gloo``, two ranks
+    sharing the card, every projection on the PIM path (``--pim
+    --pim-scope full``), batch 4, prompt 32, 8 tokens: (a) gemma2-9b at
+    full width and depth on (1, 2), traced (``_profile_pass`` launches K1
+    on rank 0), against the tokens of phase 19's one-rank run; (b)
+    granite-20b at full width (one KV head: its caches split over the
+    sequence) cut to 8 of 52 layers on (1, 2) and (c) gemma2-9b cut to
+    12 layers on (2, 1), each against a one-rank run of the launcher at
+    that depth in this process (freed before the ranks start): tokens
+    equal, 0 recompiles during decode on every rank, each rank's placed
+    parameter and decode-state bytes equal to the dry-run's count for
+    its mesh, each rank's peak beside one rank's, and prefill seconds,
+    decode tokens/s and token p50/p99 printed as what they are: two
+    ranks sharing one card, every collective through gloo on the host;
+29. one JSON line describing each kernel;
+30. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
-replays and each run of 19, and read just after (one K3 launch per
+replays and each run of 19, and read just after (28's run (a) starts
+fresh processes, whose counts start at 0, and its rank 0 writes its
+count into the launcher's ``--summary``) (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
 12's timing, 14, 15's group tables and 16 do not count (17, 18 and
-20-27 launch no kernel: the model path takes the integer products with
+20-27 and 28's runs (b) and (c) launch no kernel: the model path takes
+the integer products with
 torch matmuls, as the reference takes them in XLA, training runs the
 float path, whose gradients the reference takes in XLA too, and the
 dry-run traces fake tensors and checks itself on the float path). The
@@ -355,6 +373,15 @@ TRAIN_SHARDED_ARGS = ["--arch", "qwen3-8b", "--steps", "3", "--seq-len",
 TRAIN_SHARDED_LOSS_RTOL = 1e-5
 TRAIN_SHARDED_NORM_RTOL = 1e-5
 RANKS_TIMEOUT_S = 420
+# The sharded serving slice: the serve launcher on two ranks sharing the
+# card (gloo), every projection on the PIM path, as (run, arch, layers
+# (None: all), (data, model)). Run a is held against phase 19's
+# one-rank tokens; b and c against a one-rank run at their depth, cut
+# so that the phase fits the script's time.
+SERVE_SHARDED_RUNS = (("a", "gemma2-9b", None, (1, 2)),
+                      ("b", "granite-20b", 8, (1, 2)),
+                      ("c", "gemma2-9b", 12, (2, 1)))
+SERVE_SHARDED_CACHE = 128            # the launcher's default --cache-len
 ELASTIC_ARGS = ["--arch", "deepseek-7b", "--smoke", "--model-parallel",
                 "2", "--survivors", "2", "--steps", "4", "--more", "3"]
 BUILD = Path(__file__).resolve().parent / "build"
@@ -1353,12 +1380,13 @@ def model_consistency_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def model_serve_phase(dev) -> int:
+def model_serve_phase(dev) -> tuple:
     """Phase 19: the launcher's model mode on the card's default engine,
     twice: MODEL_ARCH at full width and depth, every projection on the
     PIM path, traced (so ``_profile_pass`` launches K1). Checks zero
     recompiles during decode, K1 launched, tokens in range and the two
-    runs' tokens identical. Returns the K1 launches of both runs."""
+    runs' tokens identical. Returns the K1 launches of both runs, the
+    tokens and the first run's peak bytes."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.kernels.crossbar_step import (crossbar_run,
@@ -1369,7 +1397,7 @@ def model_serve_phase(dev) -> int:
     argv = ["--arch", MODEL_ARCH, "--pim", "--pim-scope", "full",
             "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
             "--gen", str(SERVE_GEN), "--trace", str(trace)]
-    runs = []
+    runs, peaks = [], []
     k1 = 0
     t_phase = time.perf_counter()
     for i in (1, 2):
@@ -1404,6 +1432,7 @@ def model_serve_phase(dev) -> int:
                         & (run.tokens < cfg.vocab_size)).all()),
               f"model_serve: tokens out of range: {run.tokens.tolist()}")
         runs.append(run)
+        peaks.append(torch.cuda.max_memory_allocated())
         phase("model_serve", run=i, arch=cfg.name, layers=cfg.n_layers,
               d_model=cfg.d_model, vocab=cfg.vocab_size, pim_scope="full",
               batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
@@ -1422,7 +1451,7 @@ def model_serve_phase(dev) -> int:
           sample=json.dumps(runs[0].tokens[0].tolist()),
           seconds=round(time.perf_counter() - t_phase, 1))
     torch.cuda.empty_cache()
-    return k1
+    return k1, runs[0].tokens, peaks[0]
 
 
 def train_models(cfg, dev, remat: bool = False):
@@ -1981,6 +2010,136 @@ def elastic_card_phase() -> None:
           seconds=round(time.perf_counter() - t_phase, 1))
 
 
+def serve_one_rank(argv: list) -> tuple:
+    """The serving launcher on one rank in this process: (GreedyRun, peak
+    bytes); its memory freed after."""
+    from repro_torch import obs
+    from repro_torch.launch import serve as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = launcher.main(argv)
+    finally:
+        obs.disable()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, peak
+
+
+def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
+                        one_peak: int) -> int:
+    """Phase 28: the serving launcher on meshes of two ranks sharing the
+    card (see the module docstring). Returns run a's K1 launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _tree_bytes, abstract_states
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.model import abstract_params
+    from repro_torch.train.sharding import param_shardings, state_shardings
+    t_phase = time.perf_counter()
+    needed = ("all_reduce_int64", "all_reduce_max", "all_gather_float64",
+              "all_gather_int32")
+    refused = {k: probe["gloo_cuda"].get(k, "not probed") for k in needed
+               if probe["gloo_cuda"].get(k) != "ok"}
+    check(not refused, f"serve_sharded: gloo refuses CUDA tensors for "
+                       f"{refused}")
+    k1 = 0
+    for run_id, arch, layers, (dp, tp) in SERVE_SHARDED_RUNS:
+        t_run = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--pim", "--pim-scope", "full",
+                "--batch", str(SERVE_BATCH), "--prompt-len",
+                str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+        if layers is not None:
+            cfg = cfg.scaled(n_layers=layers)
+            argv += ["--override", json.dumps({"n_layers": layers})]
+            one, peak = serve_one_rank(argv)
+            check(one.recompiles == 0, f"serve_sharded {run_id}: one rank "
+                                       f"recompiled {one.recompiles}")
+            want = one.tokens
+            phase("serve_sharded", run=run_id, mesh="1x1", arch=cfg.name,
+                  layers=cfg.n_layers, prefill_s=round(one.prefill_s, 4),
+                  decode_tok_s=round(SERVE_BATCH * one.tokens_per_s, 3),
+                  token_p50_us=round(one.latency_us(50), 1),
+                  token_p99_us=round(one.latency_us(99), 1),
+                  peak_bytes=peak)
+            del one
+        else:
+            want, peak = one_tokens, one_peak
+        trace = BUILD / f"serve_sharded_{run_id}_trace.json"
+        summary = BUILD / f"serve_sharded_{run_id}.json"
+        extra = ["--trace", str(trace)] if run_id == "a" else []
+        wall = run_ranks(2, "repro_torch.launch.serve", argv + extra + [
+            "--model-parallel", str(tp), "--dist-backend", "gloo",
+            "--summary", str(summary)])
+        got = json.loads(summary.read_text())
+        summary.unlink()
+        spans = {}
+        if trace.exists():          # rank 0's spans, the collectives' too
+            for e in json.loads(trace.read_text())["traceEvents"]:
+                if e.get("ph") == "X":
+                    n, t = spans.get(e["name"], (0, 0.0))
+                    spans[e["name"]] = (n + 1, t + e["dur"] / 1e6)
+            trace.unlink()
+        name = f"{dp}x{tp}"
+        mesh = abstract_mesh((dp, tp), ("data", "model"))
+        params = abstract_params(cfg, torch.float32)
+        states = abstract_states(cfg, SERVE_BATCH, SERVE_SHARDED_CACHE,
+                                 torch.float32)
+        p_bytes = _tree_bytes(mesh, params, param_shardings(mesh, params))
+        s_bytes = _tree_bytes(mesh, states, state_shardings(mesh, states))
+        check(got["mesh"] == {"data": dp, "model": tp},
+              f"serve_sharded {run_id}: mesh {got['mesh']}")
+        check(np.array_equal(np.asarray(got["tokens"]), want),
+              f"serve_sharded {run_id} {name}: tokens {got['tokens']} "
+              f"against one rank's {want.tolist()}")
+        check(got["rank_recompiles"] == [0, 0],
+              f"serve_sharded {run_id}: recompiles by rank "
+              f"{got['rank_recompiles']}")
+        check(got["param_bytes"] == [p_bytes] * 2
+              and got["state_bytes"] == [s_bytes] * 2,
+              f"serve_sharded {run_id}: placed {got['param_bytes']} and "
+              f"{got['state_bytes']}, the dry-run counts {p_bytes} and "
+              f"{s_bytes}")
+        if run_id == "a":
+            check(got["launches"]["K1"] >= 1 and got["launches"]["K2"] == 0,
+                  f"serve_sharded a: rank 0 launched {got['launches']}")
+            k1 += got["launches"]["K1"]
+        phase("serve_sharded", run=run_id, mesh=name, ranks=2,
+              arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+              kv_heads=cfg.n_kv_heads, pim_scope="full",
+              backend="gloo (both ranks on one card, every collective "
+                      "through the host)",
+              tokens_equal=True, sample=json.dumps(got["tokens"][0]),
+              recompiles=json.dumps(got["rank_recompiles"]),
+              k1_launches=got["launches"]["K1"],
+              param_bytes=json.dumps(got["param_bytes"]),
+              state_bytes=json.dumps(got["state_bytes"]),
+              spec_count=json.dumps([p_bytes, s_bytes]),
+              peak_bytes=json.dumps(got["peak_bytes"]),
+              one_rank_peak=peak,
+              prefill_s_shared_card=round(got["prefill_s"], 4),
+              decode_tok_s_shared_card=round(
+                  SERVE_BATCH * got["tokens_per_s"], 3),
+              token_p50_us=round(got["token_p50_us"], 1),
+              token_p99_us=round(got["token_p99_us"], 1),
+              wall_s=round(wall, 1),
+              seconds=round(time.perf_counter() - t_run, 1),
+              card=json.dumps(smi))
+        if spans:
+            # Host seconds inside each gloo call on rank 0: the call
+            # waits for the card's queue and for the other rank too.
+            phase("serve_sharded", run=run_id, rank=0, span_s=json.dumps(
+                {k: [n, round(t, 4)] for k, (n, t) in sorted(
+                    spans.items(), key=lambda kv: -kv[1][1])
+                 if k.startswith(("dist.", "serve."))}))
+    obs.reset_trace()
+    phase("serve_sharded", seconds=round(time.perf_counter() - t_phase, 1))
+    return k1
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -2410,7 +2569,8 @@ def run_phases() -> None:
     # -------------------------------------------- 17-19. the model slice ----
     model_parity_phase(dev)
     model_consistency_phase(dev)
-    main_launches["K1"] += model_serve_phase(dev)
+    k1_serve, serve_tokens, serve_peak = model_serve_phase(dev)
+    main_launches["K1"] += k1_serve
 
     # -------------------------------------------- 20-23. the training slice ----
     train_parity_phase(dev)
@@ -2423,13 +2583,17 @@ def run_phases() -> None:
     dryrun_check_phase(smi)
 
     # ------------------------------------- 26-27. sharded training ----
-    gloo_cuda_phase()
+    probe = gloo_cuda_phase()
     train_sharded_phase(smi)
     elastic_card_phase()
+
+    # ---------------------------------------- 28. sharded serving ----
+    main_launches["K1"] += serve_sharded_phase(smi, probe, serve_tokens,
+                                               serve_peak)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 28. kernels line ----
+    # ------------------------------------------------- 29. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

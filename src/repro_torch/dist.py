@@ -25,14 +25,19 @@ mesh axes, and collectives called by hand where GSPMD would insert them.
   a column-parallel region), :func:`reduce_from_parallel` (all-reduce
   forward, identity backward: out of a row-parallel one) and
   :func:`gather_from_parallel` (all-gather forward, reduce-scatter
-  backward). A collective over a ``None`` group (an axis of size 1) is
+  backward), and :func:`max_from_parallel` (a quantisation scale's
+  maximum over the ranks that split its tensor, with the maximum's
+  gradient). A collective over a ``None`` group (an axis of size 1) is
   the identity.
 
 Gloo takes CUDA tensors for every collective used here in the torch of
 the card's machine (2.11; :func:`probe_gloo_cuda`, ``python -m
 repro_torch.dist``), so nothing is staged by hand; gloo itself moves
 every byte through host memory and the loopback, so a gloo step's time
-is not a multi-card time.
+is not a multi-card time. Under tracing (:mod:`repro_torch.obs`) each
+collective's call is a span ``dist.<collective>`` (``bytes``: the
+tensor's): host seconds inside the call, which for a CUDA tensor under
+gloo include waiting for the card's queue and for the other ranks.
 
 Imports no JAX and nothing of the reference package.
 """
@@ -47,6 +52,8 @@ from typing import Any, Dict, FrozenSet, Iterable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
+
 __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
            "is_initialized", "world_size", "rank", "local_rank",
            "local_device", "ParallelAxis", "MeshComm", "build_mesh_comm",
@@ -54,14 +61,16 @@ __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
            "all_reduce_by_axes", "all_reduce_max", "all_gather",
            "reduce_scatter", "broadcast", "broadcast_int", "all_gather_ints",
            "barrier", "copy_to_parallel", "reduce_from_parallel",
-           "gather_from_parallel"]
+           "gather_from_parallel", "max_from_parallel"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
-# The collectives this module calls; gloo must take CUDA tensors for
-# each (:func:`probe_gloo_cuda`).
-COLLECTIVES = ("all_reduce", "all_reduce_max", "broadcast", "all_gather",
-               "reduce_scatter", "barrier")
+# The collectives this module calls, with the dtypes the port gives
+# them (float32 unless named); gloo must take CUDA tensors for each
+# (:func:`probe_gloo_cuda`).
+COLLECTIVES = ("all_reduce", "all_reduce_int64", "all_reduce_max",
+               "broadcast", "all_gather", "all_gather_int32",
+               "all_gather_float64", "reduce_scatter", "barrier")
 
 # The single-tensor all-gather and reduce-scatter: torch 2.13's names,
 # or the earlier ``*_tensor`` ones where a torch has only those (2.13
@@ -267,7 +276,9 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Reduce ``x`` in place over ``group`` (``op`` "sum" or "max") and
     return it."""
     if group is not None:
-        dist.all_reduce(x, op=_OPS[op], group=group)
+        with obs.span("dist.all_reduce", cat="dist", op=op,
+                      bytes=x.numel() * x.element_size()):
+            dist.all_reduce(x, op=_OPS[op], group=group)
     return x
 
 
@@ -302,7 +313,9 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """``x`` of group rank ``src``, in place on every rank."""
     if group is None:
         return x
-    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    with obs.span("dist.broadcast", cat="dist",
+                  bytes=x.numel() * x.element_size()):
+        dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
 
 
@@ -347,7 +360,9 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = dist.get_world_size(group)
     src = x.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    _all_gather_single(out, src, group=group)
+    with obs.span("dist.all_gather", cat="dist",
+                  bytes=out.numel() * out.element_size()):
+        _all_gather_single(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -362,7 +377,9 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                          f"split {n} ways")
     src = x.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    _reduce_scatter_single(out, src, group=group)
+    with obs.span("dist.reduce_scatter", cat="dist",
+                  bytes=src.numel() * src.element_size()):
+        _reduce_scatter_single(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -396,6 +413,33 @@ class _GatherFromParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+class _MaxFromParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = all_reduce(x.detach().clone(), group, "max")
+        ctx.group = group
+        ctx.save_for_backward(x == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        held, = ctx.saved_tensors
+        both = all_reduce(torch.stack([grad, held.to(grad.dtype)]),
+                          ctx.group)
+        return torch.where(held, both[0] / both[1], 0.0), None
+
+
+def max_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of the ranks' ``x`` over ``group`` (each
+    rank's maximum of its part of a split tensor): forward a max
+    all-reduce; backward the gradients summed over the ranks, each
+    element's sum shared by the ranks that hold the maximum (as the
+    maximum of the whole tensor passes its gradient to where it lies)."""
+    if group is None:
+        return x
+    return _MaxFromParallel.apply(x, group)
 
 
 def copy_to_parallel(x: torch.Tensor, group) -> torch.Tensor:
@@ -432,10 +476,15 @@ def probe_gloo_cuda() -> Dict[str, str]:
     x = torch.arange(4, dtype=torch.float32, device=dev) + dist.get_rank()
     calls = {
         "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_int64": lambda: dist.all_reduce(x.to(torch.int64)),
         "all_reduce_max": lambda: dist.all_reduce(x.clone(),
                                                   op=dist.ReduceOp.MAX),
         "broadcast": lambda: dist.broadcast(x.clone(), src=0),
         "all_gather": lambda: _all_gather_single(x.new_empty(4 * n), x),
+        "all_gather_int32": lambda: _all_gather_single(
+            x.new_empty(4 * n, dtype=torch.int32), x.to(torch.int32)),
+        "all_gather_float64": lambda: _all_gather_single(
+            x.new_empty(4 * n, dtype=torch.float64), x.to(torch.float64)),
         "reduce_scatter": lambda: _reduce_scatter_single(x.new_empty(4),
                                                          x.repeat(n)),
         "barrier": lambda: dist.barrier(),

@@ -47,7 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import dist, obs
 from repro_torch.core.bits import from_bits, to_bits
 from repro_torch.core.costmodel import CrossbarSpec
 
@@ -693,7 +693,7 @@ class Engine:
             self.compile("mac", n_bits)
 
     def linear(self, x, w, b=None, *, n_bits: int = 8, mode: str = "pim",
-               use_pallas: bool = False):
+               use_pallas: bool = False, x_group=None, k_group=None):
         """A linear layer under MultPIM fixed-point semantics.
 
         ``mode``: ``float`` (plain matmul) | ``pim`` (quantize, integer
@@ -711,27 +711,39 @@ class Engine:
         ``x`` (..., in_dim) and ``w`` (in_dim, out_dim) are torch
         tensors on this engine's device (see :meth:`_linear_device`);
         the result is float32 on that device.
+
+        On a mesh of ranks the operands are this rank's shards and the
+        scales are the whole tensors' (the reference quantises the
+        global arrays): ``x_group`` is the process group over which
+        ``x``'s rows are split (the data axes), ``k_group`` the one over
+        which ``in_dim`` is split (a row-parallel projection on the
+        model axis). ``x``'s amax is the maximum over both, each column
+        amax of ``w`` over ``k_group`` (the two in one collective), and
+        the product is summed over ``k_group``: in ``pim`` mode the
+        integer ``(prod - corr)``, as int64, before it is dequantised.
+        The result is then the whole product of this rank's rows.
         """
-        from repro_torch.pim.quant import (dequantize, qmatmul_exact,
-                                           quantize)
+        from repro_torch.pim.quant import (amax_of, dequantize,
+                                           qmatmul_exact, quantize)
         x, w, b = self._linear_device(x, w, b)
         if mode == "float":
-            y = x @ w
-        elif mode == "fake":
-            xq = quantize(x, n_bits)
-            wq = quantize(w, n_bits, axis=0)
-            y = dequantize(xq) @ dequantize(wq)
-        elif mode == "pim":
-            # The schedule accounted in-memory: the co-scheduled K-MAC
-            # group, compiled once per (width, K) through the shared
-            # cache; K is clamped to the crossbar's column budget.
-            self._compile_mac_group(n_bits)
+            y = dist.reduce_from_parallel(x @ w, k_group)
+        elif mode in ("fake", "pim"):
             in_dim = x.shape[-1]
             lead = x.shape[:-1]
             x2 = x.reshape(-1, in_dim)
-            xq = quantize(x2, n_bits)
-            wq = quantize(w, n_bits, axis=0)
-            if use_pallas:
+            xa, wa = _global_amax(amax_of(x2), amax_of(w, 0), x_group,
+                                  k_group)
+            xq = quantize(x2, n_bits, amax=xa)
+            wq = quantize(w, n_bits, axis=0, amax=wa)
+            if mode == "fake":
+                y = dist.reduce_from_parallel(dequantize(xq) @ dequantize(wq),
+                                              k_group)
+            elif use_pallas:
+                # The schedule accounted in-memory: the co-scheduled K-MAC
+                # group, compiled once per (width, K) through the shared
+                # cache; K is clamped to the crossbar's column budget.
+                self._compile_mac_group(n_bits)
                 from repro_torch.kernels.bitserial_matmul import (
                     bitserial_matmul)
                 wf = wq.q.to(torch.float32)
@@ -742,9 +754,14 @@ class Engine:
                         + wq.zero * xq.q.to(torch.float32).sum(
                             dim=-1, keepdim=True)
                         - k * xq.zero * wq.zero)
-                y = (prod - corr) * xq.scale * wq.scale
+                acc = prod - corr
+                if k_group is not None:   # integers below 2^24: exact
+                    acc = dist.all_reduce(acc.to(torch.int64), k_group
+                                          ).to(torch.float32)
+                y = acc * xq.scale * wq.scale
             else:
-                y = qmatmul_exact(xq, wq)
+                self._compile_mac_group(n_bits)
+                y = qmatmul_exact(xq, wq, k_group)
             y = y.reshape(*lead, w.shape[-1])
         else:
             raise ValueError(mode)
@@ -753,7 +770,7 @@ class Engine:
         return y
 
     def ragged_linear(self, xs, we, counts, *, n_bits: int = 8,
-                      mode: str = "pim"):
+                      mode: str = "pim", x_group=None):
         """MoE dropless per-expert grouped GEMM under MultPIM fixed-point
         semantics: ``xs`` (T, D) expert-sorted rows, ``we`` (E, D, F)
         per-expert weight stack, ``counts`` (E,) ragged segment lengths.
@@ -764,22 +781,37 @@ class Engine:
         (:func:`repro_torch.pim.quant.qragged_matmul_exact`), compiled
         and accounted through this engine's shared co-scheduled MAC
         group exactly like the dense projections. Rows past
-        ``sum(counts)`` are zero.
+        ``sum(counts)`` are zero. ``x_group``: the ranks over which the
+        tokens are split (the data axes); ``xs``'s scale is the maximum
+        over them.
         """
-        from repro_torch.pim.quant import (dequantize, qragged_matmul_exact,
-                                           quantize, ragged_dot)
+        from repro_torch.pim.quant import (amax_of, dequantize,
+                                           qragged_matmul_exact, quantize,
+                                           ragged_dot)
         xs, we = self._linear_device(xs, we)
         if mode == "float":
             return ragged_dot(xs, we, counts)
-        if mode == "fake":
-            xq = quantize(xs, n_bits)
-            wq = quantize(we, n_bits)
-            return ragged_dot(dequantize(xq), dequantize(wq), counts)
-        if mode != "pim":
+        if mode not in ("fake", "pim"):
             raise ValueError(mode)
+        xq = quantize(xs, n_bits,
+                      amax=dist.max_from_parallel(amax_of(xs), x_group))
+        wq = quantize(we, n_bits)
+        if mode == "fake":
+            return ragged_dot(dequantize(xq), dequantize(wq), counts)
         self._compile_mac_group(n_bits)
-        return qragged_matmul_exact(quantize(xs, n_bits),
-                                    quantize(we, n_bits), counts)
+        return qragged_matmul_exact(xq, wq, counts)
+
+
+def _global_amax(xa: torch.Tensor, wa: torch.Tensor, x_group, k_group):
+    """``x``'s amax (a scalar) and ``w``'s column amax (1, N) over the
+    ranks that split them: ``x``'s over ``x_group``, then both over
+    ``k_group`` in one collective."""
+    xa = dist.max_from_parallel(xa, x_group)
+    if k_group is None:
+        return xa, wa
+    both = dist.max_from_parallel(torch.cat([xa.reshape(1), wa.reshape(-1)]),
+                                  k_group)
+    return both[0], both[1:].reshape(wa.shape)
 
 
 # ------------------------------------------------------ shared default ----

@@ -44,36 +44,59 @@ bit flips (``faults=flip@P@SEED`` in the backend spec) and
 Without ``--pim-backend`` either mode runs on the port's default engine,
 packed torch on CUDA, and raises when there is no card.
 
-The port's copy of ``repro.launch.serve``. ``--model-parallel`` takes only
-1: sharded serving is the next slice (training shards already). The
-reference's deprecated ``--pim-k``
-(pin the batch width) is dropped: ``--traffic-slots`` clamps the slot
-budget, and K is load-driven.
+Model mode serves sharded under ``torch.distributed.run`` (``WORLD_SIZE``
+in the environment): the launcher starts a process group with
+``--dist-backend`` (default ``nccl`` on the card, ``gloo`` with a CPU
+``--pim-backend``), lays the ranks out as a (data, ``--model-parallel``)
+mesh, draws each rank's shards of the parameters and of the decode
+states (``state_shardings``: KV heads, or the cache's slots where the KV
+heads do not split), and runs prefill and the greedy decode loop over
+the mesh (:func:`repro_torch.train.make_serve_step`), the PIM scales
+taken over the whole tensors. Two ranks sharing one card need gloo::
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.serve --arch gemma2-9b \
+      --pim --pim-scope full --model-parallel 2 --dist-backend gloo
+
+Every rank plans the PIM scopes and gates compile-once (the run fails if
+any rank recompiled during decode); only rank 0 logs at INFO, traces,
+runs ``_profile_pass`` and writes ``--trace``, ``--metrics`` and
+``--summary``. Traffic mode serves on one rank, as the reference's does.
+
+The port's copy of ``repro.launch.serve``. The reference's deprecated
+``--pim-k`` (pin the batch width) is dropped: ``--traffic-slots`` clamps
+the slot budget, and K is load-driven.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import logging
+import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import dist, obs
 from repro_torch.configs import get_config
 from repro_torch.device import (CoordAllocator, DeviceConfig, block_trace,
                                 charge)
 from repro_torch.engine import Engine
 from repro_torch.faults import get_fault_model
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models.transformer import encode
 from repro_torch.pim import plan_block, plan_serve_slots
 from repro_torch.serve import (DECODE_ELEMS, TrafficConfig, compare_modes,
                                generate, run_load)
 from repro_torch.train import make_serve_step
+from repro_torch.train.step import batch_rows, gather_rows, greedy_token
+from repro_torch.tree import tree_leaves
 
 # No logging side effects at import time: handlers attach only when
 # main() calls obs.setup_logging() (see repro_torch.obs.logging).
@@ -241,7 +264,11 @@ class GreedyRun:
     ``engine.stats()`` around the decode loop (the compile-once gate
     reads their ``compiles``); ``token_latency_us`` holds one host-clock
     sample per decode step, each ending in a read of the step's token
-    (which waits for the card)."""
+    (which waits for the card). ``mesh``: the mesh's axis sizes; then,
+    for each rank of it in rank order, the bytes of its placed
+    parameters and decode states (what the dry-run's ``spec_bytes``
+    counts for them), its peak allocated bytes on the card (empty on the
+    CPU) and its programs compiled during decode."""
 
     tokens: np.ndarray
     prefill_s: float
@@ -249,6 +276,11 @@ class GreedyRun:
     token_latency_us: List[float]
     stats_before: Dict[str, int]
     stats_after: Dict[str, int]
+    mesh: Dict[str, int] = field(default_factory=dict)
+    param_bytes: List[int] = field(default_factory=list)
+    state_bytes: List[int] = field(default_factory=list)
+    peak_bytes: List[int] = field(default_factory=list)
+    rank_recompiles: List[int] = field(default_factory=list)
 
     @property
     def recompiles(self) -> int:
@@ -269,10 +301,26 @@ class GreedyRun:
             return 0.0
         return float(np.percentile(self.token_latency_us, q))
 
+    def summary(self) -> Dict:
+        """The run's numbers, for ``--summary``."""
+        return {"tokens": self.tokens.tolist(), "prefill_s": self.prefill_s,
+                "decode_s": self.decode_s,
+                "tokens_per_s": self.tokens_per_s,
+                "token_p50_us": self.latency_us(50),
+                "token_p99_us": self.latency_us(99), "mesh": self.mesh,
+                "param_bytes": self.param_bytes,
+                "state_bytes": self.state_bytes,
+                "peak_bytes": self.peak_bytes,
+                "rank_recompiles": self.rank_recompiles}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
 
 def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
-                cache_len: int, frames: Optional[torch.Tensor] = None
-                ) -> GreedyRun:
+                cache_len: int, frames: Optional[torch.Tensor] = None,
+                mesh=None) -> GreedyRun:
     """Prefill ``prompts`` (B, S) through ``model`` on ``params``, leaving
     the KV caches and recurrent states behind, then decode greedily until
     each sequence has ``gen`` tokens. ``frames`` (B, F, D) feed the
@@ -284,20 +332,31 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
     reference's launcher. Spans ``serve.prefill`` and
     ``serve.decode_step``; every step's latency also lands in the
     ``serve.token_latency_us`` histogram.
+
+    With a ``mesh`` of ranks every rank of it calls this with the whole
+    ``prompts`` (and ``frames``) and this rank's shards of ``params``;
+    each runs its rows on its shards of the decode states, and every
+    rank gets the whole tokens. The bytes, peaks and recompiles of the
+    returned run are gathered from every rank of the mesh.
     """
     cfg = model.cfg
     b, s = prompts.shape
-    states = model.init_decode_state(b, cache_len)
+    rows, dp = batch_rows(mesh, b)
+    states = model.init_decode_state(b, cache_len, mesh=mesh)
+    placed = _tree_bytes(states)
     if frames is not None:
-        states["enc_out"] = encode(cfg, params, frames, engine=engine)
+        states["enc_out"] = encode(cfg, params, rows(frames), engine=engine,
+                                   mesh=mesh)
     t0 = time.perf_counter()
     with obs.span("serve.prefill", batch=b, prompt_len=s):
-        logits, states = model.forward(params, prompts, states=states)
-        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        logits, states = model.forward(params, rows(prompts), states=states,
+                                       mesh=mesh)
+        tok = gather_rows(greedy_token(cfg, logits, mesh), dp)
         out = [tok.cpu().numpy()]         # waits for the card
     prefill_s = time.perf_counter() - t0
+    del logits
 
-    serve, jit_for = make_serve_step(model)
+    serve, jit_for = make_serve_step(model, mesh)
     pos0 = torch.zeros((b, 1), dtype=torch.int32, device=prompts.device)
     step = jit_for(params, states, {"token": tok, "position": pos0})
     pre = engine.stats()
@@ -313,8 +372,19 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
         lat.append((time.perf_counter() - s0) * 1e6)
         tok_lat.observe(lat[-1])
     decode_s = time.perf_counter() - t0
-    return GreedyRun(np.concatenate(out, axis=1), prefill_s, decode_s, lat,
-                     pre, engine.stats())
+    run = GreedyRun(np.concatenate(out, axis=1), prefill_s, decode_s, lat,
+                    pre, engine.stats())
+    comm = getattr(mesh, "comm", None)
+    world = None if comm is None else comm.axis(mesh.axis_names).group
+    run.mesh = dict(mesh.shape) if mesh is not None else {"data": 1,
+                                                          "model": 1}
+    run.param_bytes = dist.all_gather_ints(_tree_bytes(params), world)
+    run.state_bytes = dist.all_gather_ints(placed, world)
+    run.rank_recompiles = dist.all_gather_ints(run.recompiles, world)
+    if model.device.type == "cuda":
+        run.peak_bytes = dist.all_gather_ints(
+            torch.cuda.max_memory_allocated(model.device), world)
+    return run
 
 
 def _profile_pass(engine, n_bits: int) -> None:
@@ -374,11 +444,12 @@ def _log_pim(args, cfg, engine, plan, device, run: GreedyRun) -> None:
              post["hits"], post["misses"], post["disk_hits"],
              post["entries"], run.recompiles)
     # hits >= 1 needs at least one decode step (each step's PIM linears
-    # fetch the MAC group from the cache); --gen 1 runs no decode.
-    if run.recompiles != 0 or (args.gen > 1 and post["hits"] < 1):
+    # fetch the MAC group from the cache); --gen 1 runs no decode. Every
+    # rank holds every rank's recompiles, so all of them stop together.
+    if any(run.rank_recompiles) or (args.gen > 1 and post["hits"] < 1):
         raise SystemExit(
             f"PIM serve path violated compile-once: hits={post['hits']}"
-            f" recompiles={run.recompiles}")
+            f" recompiles by rank={run.rank_recompiles}")
     log.info("PIM LM head: %d-bit MultPIM-MAC via the engine "
              "(backend=%s), compile-once verified",
              cfg.pim_linear_bits, engine.backend.name)
@@ -428,9 +499,23 @@ def _log_pim(args, cfg, engine, plan, device, run: GreedyRun) -> None:
 
 def _run_model(args) -> GreedyRun:
     """Model mode: build ``--arch``, plan its PIM scopes, prefill and
-    decode greedily, gate compile-once. Returns the run."""
+    decode greedily (over the mesh of ranks under a process group), gate
+    compile-once. Returns the run."""
+    lead = dist.rank() == 0
+    mesh = None
+    if dist.is_initialized():
+        try:
+            mesh = make_host_mesh(args.model_parallel)
+        except ValueError as e:
+            raise SystemExit(f"--model-parallel {args.model_parallel}: "
+                             f"{e}") from None
+        if ("device=cpu" not in (args.pim_backend or "")
+                and torch.cuda.is_available()):
+            torch.cuda.set_device(dist.local_device("cuda"))
     pim = args.smoke if args.pim is None else args.pim
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.override:
+        cfg = cfg.scaled(**json.loads(args.override))
     if pim:
         block_mode = {"head": "none", "ffn": "ffn",
                       "full": "full"}[args.pim_scope]
@@ -441,10 +526,11 @@ def _run_model(args) -> GreedyRun:
     engine = Engine(args.pim_backend)
     model = build_model(cfg, engine=engine)
     log.info("model %s on %s (engine backend %s): %d layers, d_model %d, "
-             "vocab %d, PIM scopes %s", cfg.name, model.device,
+             "vocab %d, PIM scopes %s, mesh %s", cfg.name, model.device,
              engine.backend, cfg.n_layers, cfg.d_model, cfg.vocab_size,
-             list(cfg.pim_scopes()))
-    params = model.init(0)
+             list(cfg.pim_scopes()),
+             mesh.shape if mesh is not None else {"data": 1, "model": 1})
+    params = model.init(0, mesh=mesh)
 
     # Full-block serving plan: lower every enabled scope's linears onto
     # co-scheduled crossbar groups before prefill and decode, so the
@@ -480,7 +566,7 @@ def _run_model(args) -> GreedyRun:
             (args.batch, cfg.enc_frames, cfg.d_model)).astype(np.float32)
         ).to(model.device)
     run = serve_model(model, params, prompts, engine, gen=args.gen,
-                      cache_len=args.cache_len, frames=frames)
+                      cache_len=args.cache_len, frames=frames, mesh=mesh)
     log.info("prefill %d x %d: %.2fs", args.batch, args.prompt_len,
              run.prefill_s)
     log.info("generated %d x %d tokens in %.2fs (%.1f tok/s/seq)",
@@ -494,9 +580,13 @@ def _run_model(args) -> GreedyRun:
     obs.gauge("serve.cache_misses").set(post["misses"])
     obs.gauge("serve.engine_runs").set(post["runs"])
     log.info("sample: %s", run.tokens[0][:16].tolist())
+    log.info("placed bytes by rank: parameters %s, decode states %s",
+             run.param_bytes, run.state_bytes)
     if pim:
         _log_pim(args, cfg, engine, plan, device, run)
 
+    if not lead:
+        return run
     if args.trace:
         if pim:
             _profile_pass(engine, cfg.pim_linear_bits)
@@ -506,6 +596,14 @@ def _run_model(args) -> GreedyRun:
     if args.metrics:
         obs.write_metrics(args.metrics)
         log.info("metrics snapshot -> %s", args.metrics)
+    if args.summary:
+        from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                       crossbar_run_packed)
+        out = run.summary()
+        out["launches"] = {"K1": crossbar_run_packed.launches,
+                           "K2": crossbar_run.launches}
+        with open(args.summary, "w") as f:
+            json.dump(out, f)
     return run
 
 
@@ -524,13 +622,24 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="architecture name (repro_torch.configs registry)")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced config")
+    ap.add_argument("--override", default="",
+                    help="model mode: JSON dict of ModelConfig overrides "
+                         "(e.g. '{\"n_layers\": 8}' for a cut in depth)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-parallel width; only 1 (sharded serving "
-                         "is the next slice of the port)")
+                    help="model-parallel width: model mode's mesh is "
+                         "(world / N, N) over the ranks of "
+                         "torch.distributed.run")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="process-group backend under "
+                         "torch.distributed.run: nccl (a card a rank; the "
+                         "default on the card) or gloo (the CPU, or ranks "
+                         "sharing one card; the default with a CPU "
+                         "--pim-backend)")
     ap.add_argument("--pim", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="run the LM head as a PIM-mode linear through "
@@ -620,16 +729,28 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--metrics", default=None, metavar="OUT.json",
                     help="write the obs metrics snapshot (counters, "
                          "gauges, latency histograms) as JSON")
+    ap.add_argument("--summary", default=None, metavar="OUT.json",
+                    help="model mode: write the run's numbers (tokens, "
+                         "prefill seconds, tokens/s, latency p50/p99, "
+                         "mesh, each rank's placed and peak bytes and "
+                         "recompiles, this process's kernel launches) as "
+                         "JSON")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel}: "
-                         f"sharded serving (prefill and decode over a mesh "
-                         f"of ranks, caches sharded by state_shardings) is "
-                         f"the next slice of the port; serving takes "
-                         f"--model-parallel 1 (training shards: "
-                         f"repro_torch.launch.train)")
-    obs.setup_logging()
-    if args.trace:
+    if args.traffic is not None and args.model_parallel != 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: traffic "
+                         f"mode serves on one rank, as the reference's does")
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized() \
+            and args.traffic is None:
+        on_cpu = "device=cpu" in (args.pim_backend or "")
+        dist.init_distributed(args.dist_backend
+                              or ("gloo" if on_cpu else "nccl"))
+    if args.model_parallel != 1 and not dist.is_initialized():
+        raise SystemExit(f"--model-parallel {args.model_parallel}: one "
+                         f"process is one rank; run one process a rank "
+                         f"under python -m torch.distributed.run")
+    lead = dist.rank() == 0
+    obs.setup_logging(logging.INFO if lead else logging.WARNING)
+    if args.trace and lead:
         obs.enable()
     if args.traffic is not None:
         return _run_traffic(args)

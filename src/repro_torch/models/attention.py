@@ -5,6 +5,11 @@ functions take/return (B, S, H, D) tensors. GQA groups the query heads
 over the KV heads with a reshape-free einsum, so KV is never repeated.
 Masked scores take the finite :data:`NEG_INF` (not ``-inf``), so a fully
 masked row softmaxes to a uniform row exactly as in the reference.
+
+:func:`decode_attend_split` is the decode step against a cache whose
+slots are split over the ranks of a model axis (the sequence-sharded
+branch of ``state_shardings``): each rank's :func:`partial_attend` over
+its slots, combined over the ranks (flash decoding).
 """
 from __future__ import annotations
 
@@ -12,9 +17,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import dist
+
 from .layers import softcap as _softcap
 
-__all__ = ["attend", "decode_attend", "KVCache", "projection_shapes"]
+__all__ = ["attend", "decode_attend", "decode_attend_split",
+           "partial_attend", "KVCache", "projection_shapes"]
 
 
 def projection_shapes(cfg) -> "list[Tuple[str, int, int]]":
@@ -190,13 +198,88 @@ def decode_attend(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
     d = q.shape[-1]
     scores = _grouped_scores(q, k) * (d ** -0.5)       # (B,H,1,T)
     scores = _softcap(scores, cap)
-    kpos_slot = torch.arange(t, device=k.device)
     # valid slots: those written within the last min(new_len, window or T)
+    valid = _valid_slots(slot, new_len, torch.arange(t, device=k.device), t,
+                         window)
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    out = _grouped_out(probs, v)
+    return out, KVCache(k, v, new_len)
+
+
+def _valid_slots(slot, new_len, kpos_slot, t: int, window):
+    """Which ring slots ``kpos_slot`` of a T-slot cache hold one of the
+    last ``min(new_len, window or T)`` tokens, the newest at ``slot``."""
     age = torch.remainder(slot - kpos_slot, t)          # 0 = newest
     valid = age < torch.clamp_max(new_len, t)
     if window is not None:
         valid &= age < window
-    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
-    out = _grouped_out(probs, v)
+    return valid
+
+
+def partial_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, cap: Optional[float] = None):
+    """One query token's attention over a part of the cache, before the
+    softmax is normalised: q (B, 1, H, D), k/v (B, T, Hkv, D) this
+    part's slots, ``valid`` (T,) which of them count. Returns float32
+    ``(m, l, o)``: the scores' maximum and the sum of their exponentials
+    shifted by it, each (B, H, 1, 1), and the exponential-weighted sum of
+    the values (B, 1, H, D). The scores are :func:`decode_attend`'s,
+    softcap and masks included."""
+    d = q.shape[-1]
+    scores = _softcap(_grouped_scores(q, k) * (d ** -0.5), cap)
+    scores = torch.where(valid[None, None, None, :], scores,
+                         NEG_INF).to(torch.float32)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    o = _grouped_out(p.to(q.dtype), v).to(torch.float32)
+    return m, torch.sum(p, dim=-1, keepdim=True), o
+
+
+def decode_attend_split(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
+                        v_new: torch.Tensor, group, index: int, size: int, *,
+                        window: Optional[int] = None,
+                        cap: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, KVCache]:
+    """:func:`decode_attend` against a T-slot ring split over ``size``
+    ranks of ``group``: ``cache.k``/``cache.v`` (B, T/size, Hkv, D) hold
+    slots ``[index T/size, (index + 1) T/size)``, ``q`` (B, 1, hq, D) this
+    rank's query heads (block ``index`` of the ``size hq`` heads), and
+    ``k_new``/``v_new`` (B, 1, Hkv, D) are the same on every rank.
+
+    The new key and value go into slot ``length mod T`` on the rank that
+    holds it: every rank writes its slot ``clamp(length mod T - index
+    T/size)`` in place, the new entry where it is the slot and its own
+    old one elsewhere, so the slot stays a device tensor and a step never
+    waits for the card. Attention is the flash-decoding combine: the
+    query heads gathered over the ranks, each rank's
+    :func:`partial_attend` over its slots, the maxima's maximum (one
+    all-reduce), then the sums and outputs rescaled to it and summed (one
+    more); the rank keeps its own heads. Returns them (B, 1, hq, D) and
+    the cache with the same buffers and ``length + 1``.
+    """
+    t_l = cache.k.shape[1]
+    t = t_l * size
+    slot = torch.remainder(cache.length, t).reshape(1).to(torch.int64)
+    local = slot - index * t_l
+    mine = (local >= 0) & (local < t_l)
+    at = local.clamp(0, t_l - 1)
+    k, v = cache.k, cache.v
+    k.index_copy_(1, at, torch.where(mine, k_new.to(k.dtype),
+                                     k.index_select(1, at)))
+    v.index_copy_(1, at, torch.where(mine, v_new.to(v.dtype),
+                                     v.index_select(1, at)))
+    new_len = cache.length + 1
+
+    kpos_slot = index * t_l + torch.arange(t_l, device=k.device)
+    valid = _valid_slots(slot, new_len, kpos_slot, t, window)
+    hq = q.shape[2]
+    m, l, o = partial_attend(dist.all_gather(q, group, dim=2), k, v, valid,
+                             cap)
+    top = dist.all_reduce(m.clone(), group, "max")
+    c = torch.exp(m - top).transpose(1, 2)              # (B, 1, H, 1)
+    both = dist.all_reduce(torch.cat([o * c, l.transpose(1, 2) * c],
+                                     dim=-1), group)
+    out = both[..., :-1] / both[..., -1:]
+    out = out[:, :, index * hq:(index + 1) * hq].to(q.dtype)
     return out, KVCache(k, v, new_len)

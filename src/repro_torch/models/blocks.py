@@ -27,8 +27,18 @@ scatter-add, so prefill and decode agree.
 dense decoders compute their shard in Megatron's layout, which is what
 GSPMD makes of the partition rules: the q/k/v and w1/w3 projections
 column-parallel on this rank's heads and columns, ``wo`` and ``w2``
-row-parallel, followed by the sum over ranks. Every other block kind
-raises ``NotImplementedError`` under it.
+row-parallel, followed by the sum over ranks. Their decode state is this
+rank's shard of the KV cache as ``state_shardings`` places it: its KV
+heads, or, where the KV heads do not split over the axis, its slots of
+the sequence (attention then combines the ranks' partial softmaxes,
+:func:`repro_torch.models.attention.decode_attend_split`). Every other
+block kind raises ``NotImplementedError`` under it.
+
+``dp`` is this rank's place on the data axes (``pod``, ``data``), over
+which the rows of ``x`` are split, or None. Only the PIM projections
+read it: a quantisation scale is the whole tensor's, so each projection
+takes its amax over ``dp`` (and, row-parallel, over ``tp``), as the
+reference quantises its global arrays (:func:`pim_proj`).
 """
 from __future__ import annotations
 
@@ -42,19 +52,16 @@ from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.pim.quant import ragged_dot
 
-from .attention import KVCache, attend, decode_attend
+from .attention import (KVCache, attend, decode_attend,
+                        decode_attend_split)
 from .layers import Initializer, rms_norm, rope
 
 __all__ = ["init_block", "apply_block", "init_state", "pim_proj",
-           "tensor_parallel"]
+           "tensor_parallel", "data_parallel"]
 
 # The ROADMAP item that ports what raises here under a sharded mesh.
 TP_TODO = ("ROADMAP A: tensor parallelism for MoE, RG-LRU, RWKV, the VLM "
            "and enc-dec")
-SHARDED_SERVING_TODO = ("ROADMAP A: sharded serving, with decode states "
-                        "sharded by state_shardings")
-SHARDED_PIM_TODO = ("ROADMAP A: sharded serving, with PIM quantisation "
-                    "scales reduced across ranks")
 
 
 def _gelu(x):
@@ -74,16 +81,11 @@ def tensor_parallel(cfg: ModelConfig, mesh):
     ``model`` axis of ``mesh``, or None when there is no mesh of ranks
     or that axis holds one rank.
 
-    Raises ``NotImplementedError`` for PIM scopes on a mesh of more than
-    one rank (a shard's quantisation scales would not be the whole
-    tensor's), and under a ``model`` axis for any model but a dense
-    decoder of attention blocks with heads that split over it."""
+    Raises ``NotImplementedError`` under a ``model`` axis for any model
+    but a dense decoder of attention blocks with heads that split over
+    it."""
     if mesh is None or getattr(mesh, "comm", None) is None:
         return None
-    if mesh.size > 1 and cfg.pim_scopes():
-        raise NotImplementedError(
-            f"PIM scopes {cfg.pim_scopes()} on a mesh of {mesh.size} "
-            f"ranks: {SHARDED_PIM_TODO}")
     tp = dist.mesh_axis(mesh, ("model",))
     if tp.size == 1:
         return None
@@ -102,6 +104,18 @@ def tensor_parallel(cfg: ModelConfig, mesh):
             f"{cfg.name}: {hq} query heads a rank do not align with "
             f"groups of {g} over the KV heads")
     return tp
+
+
+def data_parallel(mesh):
+    """This rank's :class:`repro_torch.dist.ParallelAxis` on the data axes
+    (``pod``, ``data``) of ``mesh``, or None when they hold one rank (or
+    there is no mesh of ranks)."""
+    dp = dist.mesh_axis(mesh, ("pod", "data"))
+    return dp if dp.group is not None else None
+
+
+def _group(axis):
+    return None if axis is None else axis.group
 
 
 def _tp_cols(w: torch.Tensor, lo: int, hi: int, full: int, tp,
@@ -124,7 +138,7 @@ def _tp_cols(w: torch.Tensor, lo: int, hi: int, full: int, tp,
 
 # ------------------------------------------------------ PIM offload ----
 def pim_proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, *,
-             scope: str, engine=None) -> torch.Tensor:
+             scope: str, engine=None, dp=None, tp=None) -> torch.Tensor:
     """One block linear, optionally offloaded to the PIM engine.
 
     ``scope`` is ``"attn"`` (q/k/v/o projections) or ``"ffn"`` (both
@@ -135,24 +149,36 @@ def pim_proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, *,
     bit-identical to the in-memory MultPIM-MAC, and compiles the
     co-scheduled MAC group into the shared program cache once: every
     projection of every layer reuses the one verified schedule.
+
+    On a mesh: ``dp`` is this rank's place on the data axes, over which
+    ``x``'s rows are split; ``tp``, given for a row-parallel projection,
+    its place on the model axis, over which ``x``'s last dimension and
+    ``w``'s first are split. The result is then the sum over ``tp``'s
+    ranks. On the PIM path the scales are the whole tensors' and the
+    integer product is summed before it is dequantised
+    (:meth:`repro_torch.engine.Engine.linear`), so the projection equals
+    the unsplit one bit for bit, given the same inputs.
     """
     if scope not in cfg.pim_scopes():
-        return x @ w
+        return dist.reduce_from_parallel(x @ w, _group(tp))
     mode = "pim" if cfg.pim_linear_mode == "off" else cfg.pim_linear_mode
     return _engine(engine).linear(x, w, n_bits=cfg.pim_linear_bits,
-                                  mode=mode)
+                                  mode=mode, x_group=_group(dp),
+                                  k_group=_group(tp))
 
 
 def _pim_ragged(cfg: ModelConfig, xs: torch.Tensor, we: torch.Tensor,
-                counts: torch.Tensor, *, engine=None) -> torch.Tensor:
+                counts: torch.Tensor, *, engine=None,
+                dp=None) -> torch.Tensor:
     """MoE per-expert grouped GEMM, PIM-offloaded under the ``"ffn"``
-    scope (the expert FFNs are the block's FFN projections)."""
+    scope (the expert FFNs are the block's FFN projections); ``xs``'s
+    scale is the maximum over ``dp``."""
     if "ffn" not in cfg.pim_scopes():
         return ragged_dot(xs, we, counts)
     mode = "pim" if cfg.pim_linear_mode == "off" else cfg.pim_linear_mode
     return _engine(engine).ragged_linear(xs, we, counts,
                                          n_bits=cfg.pim_linear_bits,
-                                         mode=mode)
+                                         mode=mode, x_group=_group(dp))
 
 
 # ============================================================ attention ====
@@ -180,34 +206,36 @@ def _init_mlp(cfg: ModelConfig, ini: Initializer, d_ff: int) -> Dict[str, Any]:
 
 
 def _apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
-               engine=None, tp=None):
+               engine=None, tp=None, dp=None):
     # Same math as layers.swiglu/gelu_mlp, with each projection routed
     # through the PIM hook (plain matmul when the scope is off).
     if tp is not None and cfg.d_ff % tp.size == 0:
-        return _apply_mlp_tp(cfg, p, x, tp)
-    h1 = pim_proj(cfg, x, p["w1"], scope="ffn", engine=engine)
+        return _apply_mlp_tp(cfg, p, x, tp, engine, dp)
+    kw = dict(scope="ffn", engine=engine, dp=dp)
+    h1 = pim_proj(cfg, x, p["w1"], **kw)
     if "w3" in p:
-        gated = F.silu(h1) * pim_proj(cfg, x, p["w3"], scope="ffn",
-                                      engine=engine)
-        return pim_proj(cfg, gated, p["w2"], scope="ffn", engine=engine)
-    return pim_proj(cfg, _gelu(h1), p["w2"], scope="ffn", engine=engine)
+        gated = F.silu(h1) * pim_proj(cfg, x, p["w3"], **kw)
+        return pim_proj(cfg, gated, p["w2"], **kw)
+    return pim_proj(cfg, _gelu(h1), p["w2"], **kw)
 
 
-def _apply_mlp_tp(cfg: ModelConfig, p, x, tp):
+def _apply_mlp_tp(cfg: ModelConfig, p, x, tp, engine, dp):
     """The MLP on this rank's ``d_ff / tp`` columns: ``w1``/``w3``
     column-parallel, ``w2`` row-parallel, then the sum over ranks. (A
     ``d_ff`` that does not split keeps every weight whole, and every
     rank computes the whole MLP.)"""
     f = cfg.d_ff // tp.size
     lo, hi = tp.index * f, (tp.index + 1) * f
+    kw = dict(scope="ffn", engine=engine, dp=dp)
     xp = dist.copy_to_parallel(x, tp.group)
-    h1 = xp @ _tp_cols(p["w1"], lo, hi, cfg.d_ff, tp)
+    h1 = pim_proj(cfg, xp, _tp_cols(p["w1"], lo, hi, cfg.d_ff, tp), **kw)
     if "w3" in p:
-        h = F.silu(h1) * (xp @ _tp_cols(p["w3"], lo, hi, cfg.d_ff, tp))
+        h = F.silu(h1) * pim_proj(
+            cfg, xp, _tp_cols(p["w3"], lo, hi, cfg.d_ff, tp), **kw)
     else:
         h = _gelu(h1)
-    out = h @ _tp_cols(p["w2"], lo, hi, cfg.d_ff, tp, dim=-2)
-    return dist.reduce_from_parallel(out, tp.group)
+    return pim_proj(cfg, h, _tp_cols(p["w2"], lo, hi, cfg.d_ff, tp, dim=-2),
+                    tp=tp, **kw)
 
 
 def init_attn_block(cfg: ModelConfig, ini: Initializer, kind: str,
@@ -237,17 +265,18 @@ def _tp_heads(cfg: ModelConfig, tp):
     return q0, hq, k0, k1 - k0
 
 
-def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp):
+def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp, engine, dp):
     """q, k, v of this rank's heads (column-parallel projections)."""
     b, s, _ = xn.shape
     hd = cfg.hd
     q0, hq, k0, hk = _tp_heads(cfg, tp)
+    kw = dict(scope="attn", engine=engine, dp=dp)
     xp = dist.copy_to_parallel(xn, tp.group)
-    q = (xp @ _tp_cols(p["wq"], q0 * hd, (q0 + hq) * hd, cfg.q_dim, tp)
-         ).reshape(b, s, hq, hd)
+    q = pim_proj(cfg, xp, _tp_cols(p["wq"], q0 * hd, (q0 + hq) * hd,
+                                   cfg.q_dim, tp), **kw).reshape(b, s, hq, hd)
     kv = (k0 * hd, (k0 + hk) * hd, cfg.kv_dim, tp)
-    k = (xp @ _tp_cols(p["wk"], *kv)).reshape(b, s, hk, hd)
-    v = (xp @ _tp_cols(p["wv"], *kv)).reshape(b, s, hk, hd)
+    k = pim_proj(cfg, xp, _tp_cols(p["wk"], *kv), **kw).reshape(b, s, hk, hd)
+    v = pim_proj(cfg, xp, _tp_cols(p["wv"], *kv), **kw).reshape(b, s, hk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, dist.copy_to_parallel(p["qn"], tp.group),
                      cfg.norm_eps)
@@ -256,16 +285,16 @@ def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp):
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
 
 
-def _qkv(cfg: ModelConfig, p, xn, pos, engine, tp=None):
+def _qkv(cfg: ModelConfig, p, xn, pos, engine, tp=None, dp=None):
     if tp is not None:
-        return _qkv_tp(cfg, p, xn, pos, tp)
+        return _qkv_tp(cfg, p, xn, pos, tp, engine, dp)
     b, s, _ = xn.shape
-    q = pim_proj(cfg, xn, p["wq"], scope="attn", engine=engine).reshape(
-        b, s, cfg.n_heads, cfg.hd)
-    k = pim_proj(cfg, xn, p["wk"], scope="attn", engine=engine).reshape(
-        b, s, cfg.n_kv_heads, cfg.hd)
-    v = pim_proj(cfg, xn, p["wv"], scope="attn", engine=engine).reshape(
-        b, s, cfg.n_kv_heads, cfg.hd)
+    kw = dict(scope="attn", engine=engine, dp=dp)
+    q = pim_proj(cfg, xn, p["wq"], **kw).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = pim_proj(cfg, xn, p["wk"], **kw).reshape(b, s, cfg.n_kv_heads,
+                                                 cfg.hd)
+    v = pim_proj(cfg, xn, p["wv"], **kw).reshape(b, s, cfg.n_kv_heads,
+                                                 cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
@@ -279,67 +308,102 @@ def _pad_seq(x, n):
     return F.pad(x, (0, 0, 0, 0, 0, n))
 
 
+def _seq_split(cfg: ModelConfig, tp, cache_k: torch.Tensor):
+    """``tp`` when this rank's cache shard ``cache_k`` (B, T_l, H_l, D)
+    holds a slice of the sequence (``state_shardings``' branch for KV
+    heads that do not split over the model axis), None when it holds a
+    slice of the KV heads or there is no model axis. Raises when this
+    rank's KV heads (:func:`_tp_heads`) are not its shard's."""
+    if tp is None:
+        return None
+    heads = cfg.n_kv_heads % tp.size == 0
+    hl = cache_k.shape[-2]
+    shard = (tp.index * hl if heads else 0, hl)
+    mine = _tp_heads(cfg, tp)[2:]
+    if mine != shard:
+        raise ValueError(f"{cfg.name}: rank {tp.index} of {tp.size} computes "
+                         f"KV heads [{mine[0]}, {sum(mine)}), its cache "
+                         f"shard holds [{shard[0]}, {sum(shard)})")
+    return None if heads else tp
+
+
+def _prefill_cache(cache, k, v, split):
+    """The KV cache a prefill of ``k``/``v`` (B, S, H, D) leaves in the
+    cache ``cache`` (``{"k", "v", "length"}``; with ``split``, this
+    rank's slots of a sequence split over ``split``'s ranks): the prompt
+    padded to the cache, or, past a window's T slots, its last T tokens
+    rotated so token j sits at ring slot j % T."""
+    t_l = cache["k"].shape[1]
+    t = t_l * (split.size if split is not None else 1)
+    s = k.shape[1]
+    kc, vc = k, v
+    if s < t:
+        kc, vc = _pad_seq(k, t - s), _pad_seq(v, t - s)
+    elif s > t:
+        kc = torch.roll(k[:, -t:], s % t, dims=1)
+        vc = torch.roll(v[:, -t:], s % t, dims=1)
+    if split is not None:
+        kc = kc.narrow(1, split.index * t_l, t_l)
+        vc = vc.narrow(1, split.index * t_l, t_l)
+    return {"k": kc.to(cache["k"].dtype), "v": vc.to(cache["v"].dtype),
+            "length": torch.tensor(s, dtype=torch.int32, device=k.device)}
+
+
 def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                     kind: str, engine=None, tp=None):
+                     kind: str, engine=None, tp=None, dp=None):
     """One attention block: (self-attention [+ cross-attention] + MLP).
     Under ``tp``, self-attention and the MLP on this rank's heads and
-    columns (no decode state: sharded caches are not ported)."""
+    columns, with this rank's shard of the KV cache (see the module
+    docstring)."""
     b, s, d = x.shape
     window = cfg.window if kind == "l" else None
-    if tp is not None and state is not None:
-        raise NotImplementedError(
-            f"decode states under a model axis of {tp.size}: "
-            f"{SHARDED_SERVING_TODO}")
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xn, pos, engine, tp)
+    q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
+    split = None if state is None else _seq_split(cfg, tp,
+                                                  state["self"]["k"])
     new_state = state
     if mode in ("full", "encode"):
         o = attend(q, k, v, causal=(mode != "encode"), window=window,
                    cap=cfg.softcap_attn)
         if state is not None:     # prefill: leave the KV behind
-            t = state["self"]["k"].shape[1]
-            kc, vc = k, v
-            if s < t:
-                kc, vc = _pad_seq(k, t - s), _pad_seq(v, t - s)
-            elif s > t:            # windowed: keep the most recent slice,
-                # rotated so token j sits at ring slot j % t.
-                kc = torch.roll(k[:, -t:], s % t, dims=1)
-                vc = torch.roll(v[:, -t:], s % t, dims=1)
             new_state = dict(state)
-            new_state["self"] = {
-                "k": kc.to(state["self"]["k"].dtype),
-                "v": vc.to(state["self"]["v"].dtype),
-                "length": torch.tensor(s, dtype=torch.int32,
-                                       device=x.device)}
+            new_state["self"] = _prefill_cache(state["self"], k, v, split)
     else:
-        o, cache = decode_attend(q, KVCache(**state["self"]), k, v,
-                                 window=window, cap=cfg.softcap_attn)
+        cache = KVCache(**state["self"])
+        if split is None:
+            o, cache = decode_attend(q, cache, k, v, window=window,
+                                     cap=cfg.softcap_attn)
+        else:
+            o, cache = decode_attend_split(q, cache, k, v, split.group,
+                                           split.index, split.size,
+                                           window=window,
+                                           cap=cfg.softcap_attn)
         new_state = dict(state)
         new_state["self"] = cache._asdict()
+    attn = dict(scope="attn", engine=engine, dp=dp)
     if tp is not None:          # row-parallel out-projection, then the sum
         q0, hq = _tp_heads(cfg, tp)[:2]
         wo = _tp_cols(p["wo"], q0 * cfg.hd, (q0 + hq) * cfg.hd, cfg.q_dim,
                       tp, dim=-2)
-        x = x + dist.reduce_from_parallel(
-            o.reshape(b, s, hq * cfg.hd) @ wo, tp.group)
+        x = x + pim_proj(cfg, o.reshape(b, s, hq * cfg.hd), wo, tp=tp,
+                         **attn)
     else:
-        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"],
-                         scope="attn", engine=engine)
+        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], **attn)
 
     if cfg.family == "encdec" and enc_out is not None:
         xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
-        qx = pim_proj(cfg, xn2, p["xq"], scope="attn", engine=engine
-                      ).reshape(b, s, cfg.n_heads, cfg.hd)
-        kx = pim_proj(cfg, enc_out, p["xk"], scope="attn", engine=engine
-                      ).reshape(b, enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
-        vx = pim_proj(cfg, enc_out, p["xv"], scope="attn", engine=engine
-                      ).reshape(b, enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
+        f = enc_out.shape[1]
+        qx = pim_proj(cfg, xn2, p["xq"], **attn).reshape(b, s, cfg.n_heads,
+                                                         cfg.hd)
+        kx = pim_proj(cfg, enc_out, p["xk"], **attn).reshape(
+            b, f, cfg.n_kv_heads, cfg.hd)
+        vx = pim_proj(cfg, enc_out, p["xv"], **attn).reshape(
+            b, f, cfg.n_kv_heads, cfg.hd)
         ox = attend(qx, kx, vx, causal=False)
-        x = x + pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"],
-                         scope="attn", engine=engine)
+        x = x + pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"], **attn)
 
     xn3 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine, tp=tp)
+    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine, tp=tp, dp=dp)
     return x, new_state
 
 
@@ -364,7 +428,7 @@ MOE_CHUNK = 32768   # cap tokens per dispatch so the sorted dispatch
 
 
 def moe_ffn(cfg: ModelConfig, p, x3: torch.Tensor, *,
-            engine=None) -> torch.Tensor:
+            engine=None, dp=None) -> torch.Tensor:
     """Dropless top-k expert FFN over (B, S, D); long sequences are
     dispatched in chunks along S, so the sorted (T*k, D) dispatch
     activations stay O(chunk)."""
@@ -372,11 +436,11 @@ def moe_ffn(cfg: ModelConfig, p, x3: torch.Tensor, *,
     sc = max(1, MOE_CHUNK // max(1, b))
     if s > sc and s % sc == 0:
         ys = [_moe_ffn_chunk(cfg, p, x3[:, c:c + sc].reshape(b * sc, d),
-                             engine=engine).reshape(b, sc, d)
+                             engine=engine, dp=dp).reshape(b, sc, d)
               for c in range(0, s, sc)]
         return torch.cat(ys, dim=1)
     return _moe_ffn_chunk(cfg, p, x3.reshape(b * s, d),
-                          engine=engine).reshape(b, s, d)
+                          engine=engine, dp=dp).reshape(b, s, d)
 
 
 def _expert_counts(flat_e: torch.Tensor, n_experts: int):
@@ -394,7 +458,7 @@ def _expert_counts(flat_e: torch.Tensor, n_experts: int):
 
 
 def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
-                   engine=None) -> torch.Tensor:
+                   engine=None, dp=None) -> torch.Tensor:
     """Dropless dispatch: sort token-expert pairs by expert (stable), then
     grouped GEMMs over the ragged per-expert segments, then a scatter-add
     of the gated outputs back to their tokens.
@@ -417,21 +481,22 @@ def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
     counts = _expert_counts(flat_e, e.n_experts)
 
     xs = x2[st]                                            # (T*k, d)
-    h = _pim_ragged(cfg, xs, p["we1"], counts, engine=engine)
-    h3 = _pim_ragged(cfg, xs, p["we3"], counts, engine=engine)
-    y = _pim_ragged(cfg, F.silu(h) * h3, p["we2"], counts, engine=engine)
+    kw = dict(engine=engine, dp=dp)
+    h = _pim_ragged(cfg, xs, p["we1"], counts, **kw)
+    h3 = _pim_ragged(cfg, xs, p["we3"], counts, **kw)
+    y = _pim_ragged(cfg, F.silu(h) * h3, p["we2"], counts, **kw)
     out = torch.zeros_like(x2).index_add_(0, st, y * sg[:, None])
     if e.n_shared:
-        out = out + _apply_mlp(cfg, p["shared"], x2, engine=engine)
+        out = out + _apply_mlp(cfg, p["shared"], x2, **kw)
     return out
 
 
 def apply_moe_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                    engine=None):
+                    engine=None, dp=None):
     """One MoE block: self-attention (``wo`` plain) + the expert FFN."""
     b, s, d = x.shape
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xn, pos, engine)
+    q, k, v = _qkv(cfg, p, xn, pos, engine, dp=dp)
     new_state = state
     if mode == "full":
         o = attend(q, k, v, causal=True, cap=cfg.softcap_attn)
@@ -442,7 +507,7 @@ def apply_moe_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
         new_state["self"] = cache._asdict()
     x = x + (o.reshape(b, s, cfg.q_dim) @ p["wo"])
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + moe_ffn(cfg, p, xn2, engine=engine), new_state
+    return x + moe_ffn(cfg, p, xn2, engine=engine, dp=dp), new_state
 
 
 # ============================================================== RG-LRU ====
@@ -479,7 +544,7 @@ def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 
 
 def apply_rglru_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                      engine=None):
+                      engine=None, dp=None):
     """One RG-LRU block: gated linear recurrence + MLP."""
     b, s, d = x.shape
     c_exp = 8.0
@@ -513,7 +578,8 @@ def apply_rglru_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
     y = (h * g) @ p["wo"]
     x = x + y
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _apply_mlp(cfg, p["mlp"], xn2, engine=engine), new_state
+    return x + _apply_mlp(cfg, p["mlp"], xn2, engine=engine,
+                          dp=dp), new_state
 
 
 # ============================================================== RWKV-6 ====
@@ -575,8 +641,10 @@ def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv):
 
 
 def apply_rwkv_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                     engine=None):
-    """One RWKV-6 block: time mix + channel mix, with token shift."""
+                     engine=None, dp=None):
+    """One RWKV-6 block: time mix + channel mix, with token shift (its
+    projections are plain ``@``: no PIM scope reaches them, so ``dp`` is
+    not read)."""
     b, s, d = x.shape
     if state is None:
         state = init_state(cfg, "r", b, 0, x.dtype, device=x.device)
@@ -618,28 +686,25 @@ def init_block(cfg: ModelConfig, ini: Initializer, kind: str):
 
 
 def apply_block(cfg: ModelConfig, kind: str, p, x, *, pos, state=None,
-                enc_out=None, mode="full", engine=None, tp=None):
+                enc_out=None, mode="full", engine=None, tp=None, dp=None):
     """Apply one block of layer kind ``kind``; returns (y, new_state).
-    ``tp`` (:func:`tensor_parallel`) only for attention blocks."""
+    ``tp`` (:func:`tensor_parallel`) only for attention blocks; ``dp``
+    (:func:`data_parallel`) for every kind."""
+    kw = dict(pos=pos, state=state, enc_out=enc_out, mode=mode,
+              engine=engine, dp=dp)
     if kind in ("g", "l"):
-        return apply_attn_block(cfg, p, x, pos=pos, state=state,
-                                enc_out=enc_out, mode=mode, kind=kind,
-                                engine=engine, tp=tp)
+        return apply_attn_block(cfg, p, x, kind=kind, tp=tp, **kw)
     if tp is not None:
         raise NotImplementedError(f"block kind {kind!r} under a model axis "
                                   f"of {tp.size}: {TP_TODO}")
     if kind == "d":
-        return apply_attn_block(cfg, p, x, pos=pos, state=state,
-                                enc_out=enc_out, mode=mode, kind="g",
-                                engine=engine)
+        return apply_attn_block(cfg, p, x, kind="g", **kw)
     if kind == "m":
-        return apply_moe_block(cfg, p, x, pos=pos, state=state,
-                               enc_out=enc_out, mode=mode, engine=engine)
+        return apply_moe_block(cfg, p, x, **kw)
     if kind == "r":
         fn = (apply_rwkv_block if cfg.family == "rwkv"
               else apply_rglru_block)
-        return fn(cfg, p, x, pos=pos, state=state, enc_out=enc_out,
-                  mode=mode, engine=engine)
+        return fn(cfg, p, x, **kw)
     raise ValueError(kind)
 
 

@@ -12,7 +12,10 @@ count of the whole batch (summed over the data axes), so the shares and
 their gradients sum over the data ranks to the unsharded loss and its
 gradients, however unevenly the ranks' labels are masked. Over a
 ``model`` axis the logits are sharded by vocabulary and the cross
-entropy is vocab-parallel.
+entropy is vocab-parallel. ``init``, ``forward``, ``decode_step`` and
+``init_decode_state`` take the mesh too: this rank's shards of the
+parameters (drawn shard by shard), its rows, and its shards of the
+decode states as ``state_shardings`` places them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_map_with_path
 
 from . import transformer as T
 from .blocks import tensor_parallel
@@ -63,13 +67,18 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
         raise ValueError(f"device {device} is not the engine's device "
                          f"{dev}: a model lives where its engine runs")
 
-    def init(seed: Union[int, torch.Generator] = 0, dtype=torch.float32):
+    def init(seed: Union[int, torch.Generator] = 0, dtype=torch.float32,
+             mesh=None):
         """Parameters from ``seed`` (an int or a ``torch.Generator``;
-        an int seeds a generator on the model's device)."""
+        an int seeds a generator on the model's device). With a ``mesh``
+        of ranks, this rank's shard of each leaf by the partition rules:
+        the whole init's draws, each leaf (each block) sliced as it is
+        drawn, so the shards equal ``shard_leaf`` of the whole init and
+        the whole tree is never live."""
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return T.init_params(cfg, gen, dtype)
+        return T.init_params(cfg, gen, dtype, place=_placer(mesh))
 
     def loss(params, batch, mesh=None) -> torch.Tensor:
         """The masked mean cross entropy of ``batch``; with a ``mesh``
@@ -96,14 +105,29 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
     def fwd(params, tokens, **kw):
         return T.forward(cfg, params, tokens, engine=engine, **kw)
 
-    def decode(params, token, position, states):
+    def decode(params, token, position, states, mesh=None):
         return T.decode_step(cfg, params, token, position, states,
-                             engine=engine)
+                             engine=engine, mesh=mesh)
 
-    def init_state(batch, cache_len, dtype=torch.float32):
-        return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev)
+    def init_state(batch, cache_len, dtype=torch.float32, mesh=None):
+        return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev,
+                                   mesh=mesh)
 
     return Model(cfg, engine, dev, init, loss, fwd, decode, init_state)
+
+
+def _placer(mesh):
+    """A tree of whole parameter leaves to this rank's shards of them by
+    the partition rules on ``mesh`` (None without a mesh of ranks)."""
+    if getattr(mesh, "comm", None) is None:
+        return None
+    from repro_torch.train.sharding import shard_leaf, spec_for_leaf
+
+    def place(tree):
+        return tree_map_with_path(
+            lambda path, x: shard_leaf(mesh, x, spec_for_leaf(
+                mesh, T._leaf_name(path), tuple(x.shape))), tree)
+    return place
 
 
 def _nll(cfg: ModelConfig, logits, labels, tp) -> torch.Tensor:

@@ -12,15 +12,21 @@ the caches where they lie and allocates no second copy.
 Decode states keep every counter (a cache's ``length``, its ring slot) as
 a device tensor: a decode step never waits for the card.
 
-Given a mesh of ranks (``mesh=``) with a ``model`` axis,
-:func:`forward` takes this rank's place on it once
-(:func:`repro_torch.models.blocks.tensor_parallel`) and hands it to every
-block: the embedding is vocab-parallel (a masked lookup of this rank's
-rows, then the sum over ranks), the blocks compute their shard, and the
-logits stay sharded over the vocabulary for the loss
-(:func:`repro_torch.models.model.build_model`'s vocab-parallel cross
-entropy). A leaf that the rules keep whole (a vocabulary that does not
-split) is used whole.
+Given a mesh of ranks (``mesh=``), :func:`forward` and
+:func:`decode_step` take this rank's place on it once
+(:func:`repro_torch.models.blocks.tensor_parallel` on the ``model``
+axis, :func:`repro_torch.models.blocks.data_parallel` on the data axes)
+and hand it to every block. The tokens, positions, frames and decode
+states are this rank's rows (and, over ``model``, its shards of the
+caches, as ``state_shardings`` places them: :func:`init_decode_state`
+makes them). Over ``model`` the embedding is vocab-parallel (a masked
+lookup of this rank's rows, then the sum over ranks), the blocks compute
+their shard, and the logits stay sharded over the vocabulary (for the
+loss's vocab-parallel cross entropy, and the greedy token's argmax over
+the shards, :func:`repro_torch.train.step.greedy_token`). A leaf that the
+rules keep whole (a vocabulary that does not split) is used whole. The
+PIM projections take their scales over the ranks that split their
+operands (:func:`repro_torch.models.blocks.pim_proj`).
 """
 from __future__ import annotations
 
@@ -30,9 +36,10 @@ import torch
 
 from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import (DictKey, tree_flatten, tree_flatten_with_path,
+                              tree_map, tree_map_with_path)
 
-from .blocks import (SHARDED_SERVING_TODO, _engine, apply_block, init_block,
+from .blocks import (_engine, _group, apply_block, data_parallel, init_block,
                      init_state, tensor_parallel)
 from .layers import Initializer, rms_norm, softcap
 
@@ -41,7 +48,7 @@ __all__ = ["stack_plan", "init_params", "forward", "decode_step",
 
 
 def head_matmul(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor, *,
-                engine=None) -> torch.Tensor:
+                engine=None, dp=None) -> torch.Tensor:
     """LM-head projection, optionally offloaded to the PIM engine.
 
     With ``cfg.pim_linear_mode != "off"`` the projection runs as a
@@ -51,12 +58,16 @@ def head_matmul(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor, *,
     program cache once, and the product is the bit-identical quantized
     integer path. This is the ``"head"`` scope; the block scopes route
     through :func:`repro_torch.models.blocks.pim_proj` on the same
-    engine.
+    engine. ``dp``: this rank's place on the data axes, over which
+    ``x``'s rows are split (its scale is the maximum over them); a
+    vocab-parallel ``head`` holds whole columns, so its scales are its
+    own.
     """
     if cfg.pim_linear_mode == "off":
         return x @ head
     return _engine(engine).linear(x, head, n_bits=cfg.pim_linear_bits,
-                                  mode=cfg.pim_linear_mode)
+                                  mode=cfg.pim_linear_mode,
+                                  x_group=_group(dp))
 
 
 # ------------------------------------------------------------ planning ----
@@ -118,58 +129,77 @@ def _put(stacked, i: int, new) -> None:
 
 # ---------------------------------------------------------------- init ----
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32) -> Dict[str, Any]:
+                dtype=torch.float32,
+                place: Optional[Callable[[Any], Any]] = None
+                ) -> Dict[str, Any]:
     """The model's parameter tree, drawn from ``generator`` on its device:
     ``embed``, ``final_norm``, [``lm_head``], ``prefix``, ``scan``
-    (stacked), ``suffix``, [``encoder``], [``patch_proj``]."""
+    (stacked), ``suffix``, [``encoder``], [``patch_proj``].
+
+    ``place`` (a tree of whole leaves, named as in the parameter tree,
+    to this rank's shards of them) is applied to each leaf, and to each
+    block's leaves, as soon as they are drawn, in the draw order of the
+    whole init: the shards equal the whole init's, and only one block's
+    (a stacked unit's) or one top-level leaf's whole leaves are live
+    at a time."""
     ini = Initializer(generator)
     prefix, unit, n_units, suffix = stack_plan(cfg)
-    params: Dict[str, Any] = {
-        "embed": ini(cfg.vocab_size, cfg.d_model,
-                     scale=cfg.d_model ** -0.5, dtype=dtype),
-        "final_norm": ini.zeros(cfg.d_model, dtype=dtype),
-    }
+
+    def keep(tree):
+        tree = tree_map(lambda x: x.to(dtype), tree)
+        return tree if place is None else place(tree)
+
+    def block(c, kind):
+        return keep(init_block(c, ini, kind))
+    params: Dict[str, Any] = keep({"embed": ini(
+        cfg.vocab_size, cfg.d_model, scale=cfg.d_model ** -0.5,
+        dtype=dtype)})
+    params.update(keep({"final_norm": ini.zeros(cfg.d_model, dtype=dtype)}))
     if not cfg.tie_embeddings:
-        params["lm_head"] = ini(cfg.d_model, cfg.vocab_size,
-                                scale=cfg.d_model ** -0.5, dtype=dtype)
-    params["prefix"] = [init_block(cfg, ini, k) for k in prefix]
-    params["scan"] = [_stack(lambda: init_block(cfg, ini, k), n_units)
-                      for k in unit]
-    params["suffix"] = [init_block(cfg, ini, k) for k in suffix]
+        params.update(keep({"lm_head": ini(cfg.d_model, cfg.vocab_size,
+                                           scale=cfg.d_model ** -0.5,
+                                           dtype=dtype)}))
+    params["prefix"] = [block(cfg, k) for k in prefix]
+    params["scan"] = [_stack(lambda: block(cfg, k), n_units) for k in unit]
+    params["suffix"] = [block(cfg, k) for k in suffix]
 
     if cfg.family == "encdec":
         enc_cfg = cfg.scaled(family="decoder")  # no cross-attn weights
         params["encoder"] = {
-            "blocks": _stack(lambda: init_block(enc_cfg, ini, "g"),
-                             cfg.enc_layers),
+            "blocks": _stack(lambda: block(enc_cfg, "g"), cfg.enc_layers)}
+        params["encoder"].update(keep({
             "norm": ini.zeros(cfg.d_model, dtype=dtype),
-            "pos": ini(cfg.enc_frames, cfg.d_model, scale=0.02, dtype=dtype),
-        }
+            "pos": ini(cfg.enc_frames, cfg.d_model, scale=0.02,
+                       dtype=dtype)}))
     if cfg.family == "vlm":
-        params["patch_proj"] = ini(cfg.d_model, cfg.d_model,
-                                   scale=cfg.d_model ** -0.5, dtype=dtype)
-    return tree_map(lambda x: x.to(dtype), params)
+        params.update(keep({"patch_proj": ini(cfg.d_model, cfg.d_model,
+                                              scale=cfg.d_model ** -0.5,
+                                              dtype=dtype)}))
+    return params
 
 
 # ------------------------------------------------------------- encoder ----
 def encode(cfg: ModelConfig, params, frames: torch.Tensor, *,
-           engine=None) -> torch.Tensor:
+           engine=None, mesh=None) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (stub
-    frontend): non-causal self-attention blocks."""
+    frontend): non-causal self-attention blocks. With a ``mesh``,
+    ``frames`` are this rank's rows over the data axes."""
     enc = params["encoder"]
     x = frames + enc["pos"][None, : frames.shape[1]]
     s = x.shape[1]
     pos = torch.arange(s, device=x.device)[None].expand(x.shape[0], s)
     dec_cfg = cfg.scaled(family="decoder")
+    dp = data_parallel(mesh)
     for i in range(cfg.enc_layers):
         x, _ = apply_block(dec_cfg, "g", _at(enc["blocks"], i), x, pos=pos,
-                           mode="encode", engine=engine)  # non-causal
+                           mode="encode", engine=engine,
+                           dp=dp)  # non-causal
     return rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
 # ------------------------------------------------------------- forward ----
 def _unit_checkpointed(cfg: ModelConfig, unit, stacked, i: int, x, pos,
-                       enc_out, mode: str, engine, tp=None):
+                       enc_out, mode: str, engine, tp=None, dp=None):
     """Unit ``i`` of the stacked loop under activation checkpointing: its
     parameter views are the checkpoint's inputs, so their gradients flow
     into the stacked leaves."""
@@ -181,7 +211,7 @@ def _unit_checkpointed(cfg: ModelConfig, unit, stacked, i: int, x, pos,
         for j, kind in enumerate(unit):
             h, _ = apply_block(cfg, kind, blks[j], h, pos=pos,
                                enc_out=enc_out, mode=mode, engine=engine,
-                               tp=tp)
+                               tp=tp, dp=dp)
         return h
     # No draw in the forward needs replaying: skip saving the RNG state.
     return checkpoint(run, x, *leaves, use_reentrant=False,
@@ -202,13 +232,46 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
     return dist.reduce_from_parallel(local, tp.group) * scale
 
 
-def _head(cfg: ModelConfig, params, x, engine, tp=None):
+def _head(cfg: ModelConfig, params, x, engine, tp=None, dp=None):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     if tp is not None and head.shape[-1] != cfg.vocab_size:
         x = dist.copy_to_parallel(x, tp.group)   # logits over this shard
-    return softcap(head_matmul(cfg, x, head, engine=engine),
+    return softcap(head_matmul(cfg, x, head, engine=engine, dp=dp),
                    cfg.softcap_final)
+
+
+def _leaf_name(path) -> str:
+    for entry in reversed(path):
+        if isinstance(entry, DictKey):
+            return str(entry.key)
+    return ""
+
+
+def _whole_lengths(stacked, n_units: int, dp):
+    """The stacked decode states ``stacked`` (a list, one tree a unit
+    slot) with every ``length`` leaf whole, and a function that writes
+    the lengths back. ``state_shardings`` splits a stacked ``length``
+    (one counter a unit) over the data axes when they divide the
+    units: this rank holds its part, and the whole is gathered for the
+    loop over units (GSPMD reads it so), then this rank's part of the
+    new lengths is written back into its shard."""
+    if dp is None or stacked is None:
+        return stacked, lambda: None
+    shards = []
+
+    def whole(path, x):
+        if _leaf_name(path) != "length" or x.shape[0] == n_units:
+            return x
+        shards.append((x, dist.all_gather(x, dp.group, dim=0)))
+        return shards[-1][1]
+    work = tree_map_with_path(whole, stacked)
+
+    def back():
+        for x, w in shards:
+            n = x.shape[0]
+            x.copy_(w[dp.index * n:(dp.index + 1) * n])
+    return work, back
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
@@ -232,15 +295,12 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     blocks are not rematerialised, as in the reference. The gradients do
     not change, only the peak memory.
 
-    Given a ``mesh`` of ranks with a ``model`` axis, ``params`` are this
-    rank's shards and the logits this rank's part of
-    the vocabulary (see the module docstring); ``states`` are not ported
-    there and raise.
+    Given a ``mesh`` of ranks, ``params`` and ``states`` are this rank's
+    shards, the inputs its rows, and over a ``model`` axis the logits
+    this rank's part of the vocabulary (see the module docstring).
     """
     tp = tensor_parallel(cfg, mesh)
-    if tp is not None and states is not None:
-        raise NotImplementedError(f"decode states under a model axis of "
-                                  f"{tp.size}: {SHARDED_SERVING_TODO}")
+    dp = data_parallel(mesh)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, tp)
     if extra_embed is not None:
@@ -252,50 +312,59 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
         pos = positions
     enc_out = None
     if cfg.family == "encdec" and enc_frames is not None:
-        enc_out = encode(cfg, params, enc_frames, engine=engine)
+        enc_out = encode(cfg, params, enc_frames, engine=engine, mesh=mesh)
 
     prefix, unit, n_units, suffix = stack_plan(cfg)
     st = states if states is not None else {}
     new_states: Dict[str, Any] = {"prefix": [], "scan": None, "suffix": []}
+    kw = dict(pos=pos, enc_out=enc_out, mode=mode, engine=engine, tp=tp,
+              dp=dp)
 
     for i, kind in enumerate(prefix):
-        x, ns = apply_block(cfg, kind, params["prefix"][i], x, pos=pos,
+        x, ns = apply_block(cfg, kind, params["prefix"][i], x,
                             state=(st.get("prefix") or [None] * len(prefix))[i],
-                            enc_out=enc_out, mode=mode, engine=engine, tp=tp)
+                            **kw)
         new_states["prefix"].append(ns)
 
     scan_states = st.get("scan")
+    work, lengths_back = _whole_lengths(scan_states, n_units, dp)
     for i in range(n_units):
         if remat and scan_states is None:
             x = _unit_checkpointed(cfg, unit, params["scan"], i, x, pos,
-                                   enc_out, mode, engine, tp)
+                                   enc_out, mode, engine, tp, dp)
             continue
         for j, kind in enumerate(unit):
             x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
-                                pos=pos,
-                                state=None if scan_states is None
-                                else _at(scan_states[j], i),
-                                enc_out=enc_out, mode=mode, engine=engine,
-                                tp=tp)
-            if scan_states is not None:
-                _put(scan_states[j], i, ns)
+                                state=None if work is None
+                                else _at(work[j], i), **kw)
+            if work is not None:
+                _put(work[j], i, ns)
+    lengths_back()
     new_states["scan"] = scan_states
 
     for i, kind in enumerate(suffix):
-        x, ns = apply_block(cfg, kind, params["suffix"][i], x, pos=pos,
+        x, ns = apply_block(cfg, kind, params["suffix"][i], x,
                             state=(st.get("suffix") or [None] * len(suffix))[i],
-                            enc_out=enc_out, mode=mode, engine=engine, tp=tp)
+                            **kw)
         new_states["suffix"].append(ns)
 
-    logits = _head(cfg, params, x, engine, tp)
+    logits = _head(cfg, params, x, engine, tp, dp)
     return logits, (new_states if states is not None else None)
 
 
 # -------------------------------------------------------------- decode ----
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      dtype=torch.float32, device=None) -> Dict[str, Any]:
+                      dtype=torch.float32, device=None,
+                      mesh=None) -> Dict[str, Any]:
     """Zero decode states for every block, stacked as the parameters are,
-    on ``device``."""
+    on ``device``. With a ``mesh`` of ranks, this rank's shard of each
+    leaf as ``state_shardings`` places it (shapes from ``shard_shape``;
+    nothing whole is made). Under a model axis a KV cache must split
+    over it, by KV heads or by slots: a cache that the rules keep whole
+    there raises ``NotImplementedError``."""
+    if getattr(mesh, "comm", None) is not None:
+        return _sharded_decode_state(cfg, batch, cache_len, dtype, device,
+                                     mesh)
     prefix, unit, n_units, suffix = stack_plan(cfg)
 
     def one(kind):
@@ -312,41 +381,68 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
+def _sharded_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                          dtype, device, mesh) -> Dict[str, Any]:
+    from repro_torch.train.sharding import (shard_shape, spec_leaves,
+                                            state_shardings)
+    whole = init_decode_state(cfg, batch, cache_len, dtype, device="meta")
+    leaves, treedef = tree_flatten(whole)
+    specs = spec_leaves(state_shardings(mesh, whole), len(leaves))
+    paths = [_leaf_name(p) for p, _ in tree_flatten_with_path(whole)[0]]
+    tp = tensor_parallel(cfg, mesh)
+    out = []
+    for name, x, spec in zip(paths, leaves, specs):
+        if tp is not None and name == "k" and "model" not in spec:
+            raise NotImplementedError(
+                f"{cfg.name}: a cache of {x.shape[-3]} slots and "
+                f"{x.shape[-2]} KV heads splits over neither on a model "
+                f"axis of {tp.size}, so state_shardings keeps it whole; "
+                f"sharded decode takes a cache the axis splits (choose "
+                f"a cache length, and window, that it divides)")
+        out.append(torch.zeros(shard_shape(mesh, tuple(x.shape), spec),
+                               dtype=x.dtype, device=device))
+    return treedef.unflatten(out)
+
+
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
                 position: torch.Tensor, states: Dict[str, Any], *,
-                engine=None):
+                engine=None, mesh=None):
     """One-token serve step. token (B,1); position (B,1) absolute.
 
     The stacked states are updated in place (the reference carries them
     through its scan and updates them with ``dynamic_update_index``);
-    the returned tree holds the same stacked buffers."""
-    x = _embed(cfg, params, token)
+    the returned tree holds the same stacked buffers. With a ``mesh`` of
+    ranks, ``token``, ``position`` and ``states`` are this rank's rows
+    and shards, and over ``model`` the logits this rank's part of the
+    vocabulary (see the module docstring)."""
+    tp = tensor_parallel(cfg, mesh)
+    dp = data_parallel(mesh)
+    x = _embed(cfg, params, token, tp)
     enc_out = states.get("enc_out")
     prefix, unit, n_units, suffix = stack_plan(cfg)
     new_states = dict(states)
     new_states["prefix"] = []
     new_states["suffix"] = []
+    kw = dict(pos=position, enc_out=enc_out, mode="decode", engine=engine,
+              tp=tp, dp=dp)
 
     for i, kind in enumerate(prefix):
-        x, ns = apply_block(cfg, kind, params["prefix"][i], x, pos=position,
-                            state=states["prefix"][i], enc_out=enc_out,
-                            mode="decode", engine=engine)
+        x, ns = apply_block(cfg, kind, params["prefix"][i], x,
+                            state=states["prefix"][i], **kw)
         new_states["prefix"].append(ns)
 
+    work, lengths_back = _whole_lengths(states["scan"], n_units, dp)
     for i in range(n_units):
         for j, kind in enumerate(unit):
             x, ns = apply_block(cfg, kind, _at(params["scan"][j], i), x,
-                                pos=position,
-                                state=_at(states["scan"][j], i),
-                                enc_out=enc_out, mode="decode",
-                                engine=engine)
-            _put(states["scan"][j], i, ns)
+                                state=_at(work[j], i), **kw)
+            _put(work[j], i, ns)
+    lengths_back()
 
     for i, kind in enumerate(suffix):
-        x, ns = apply_block(cfg, kind, params["suffix"][i], x, pos=position,
-                            state=states["suffix"][i], enc_out=enc_out,
-                            mode="decode", engine=engine)
+        x, ns = apply_block(cfg, kind, params["suffix"][i], x,
+                            state=states["suffix"][i], **kw)
         new_states["suffix"].append(ns)
 
-    return _head(cfg, params, x, engine), new_states
+    return _head(cfg, params, x, engine, tp, dp), new_states
 

@@ -15,11 +15,13 @@ they are exact while that stays below ``2^53``, which
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["QTensor", "quantize", "dequantize", "qmatmul_exact",
+from repro_torch import dist
+
+__all__ = ["QTensor", "amax_of", "quantize", "dequantize", "qmatmul_exact",
            "qragged_matmul_exact", "ragged_dot"]
 
 
@@ -34,15 +36,24 @@ class QTensor(NamedTuple):
     zero: int
 
 
-def quantize(x: torch.Tensor, n_bits: int = 8, axis=None) -> QTensor:
+def amax_of(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """``|x|``'s maximum: over the whole tensor, or along ``axis`` (kept
+    as a dimension of 1), as :func:`quantize` scales by it."""
+    if axis is None:
+        return x.abs().amax()
+    return x.abs().amax(dim=axis, keepdim=True)
+
+
+def quantize(x: torch.Tensor, n_bits: int = 8, axis=None,
+             amax: Optional[torch.Tensor] = None) -> QTensor:
     """Symmetric quantization of ``x`` to unsigned ``n_bits`` with the
     offset ``2^(n-1)``: one scale over the whole tensor, or one per slice
-    along ``axis`` (``axis=0`` gives a weight one scale per column)."""
+    along ``axis`` (``axis=0`` gives a weight one scale per column).
+    ``amax`` (:func:`amax_of`'s shape) replaces ``x``'s own: a shard
+    takes the whole tensor's, reduced over the ranks that split it."""
     x = torch.as_tensor(x)
-    if axis is None:
-        amax = x.abs().amax()
-    else:
-        amax = x.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = amax_of(x, axis)
     scale = torch.clamp_min(amax, 1e-8) / (2 ** (n_bits - 1) - 1)
     zero = 2 ** (n_bits - 1)
     q = torch.clamp(torch.round(x / scale) + zero, 0, 2 ** n_bits - 1)
@@ -66,9 +77,15 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
 
 
-def qmatmul_exact(xq: QTensor, wq: QTensor) -> torch.Tensor:
+def qmatmul_exact(xq: QTensor, wq: QTensor, group=None) -> torch.Tensor:
     """Integer matmul with offset correction; bit-identical to what the
     in-memory MultPIM-MAC mat-vec computes on the quantized operands.
+    ``group``: the ranks over which the inner dimension is split (a
+    row-parallel projection, each rank's operands one slice of K, both
+    quantised with the whole tensors' scales): the integer ``(prod -
+    corr)`` is summed over them as int64 before it is dequantised, where
+    GSPMD reduces the reference's int32 product, so each rank's result
+    is the unsplit one bit for bit.
 
     (x - zx) sx @ (w - zw) sw = sx sw [xq@wq - zx*sum(wq) - zw*sum(xq)
                                        + K*zx*zw]
@@ -86,8 +103,8 @@ def qmatmul_exact(xq: QTensor, wq: QTensor) -> torch.Tensor:
     corr = (xq.zero * wi.to(torch.int64).sum(dim=0, keepdim=True)
             + wq.zero * xi.to(torch.int64).sum(dim=-1, keepdim=True)
             - k * xq.zero * wq.zero)
-    return ((prod - corr).to(torch.int32).to(torch.float32)
-            * xq.scale * wq.scale)
+    acc = dist.all_reduce(prod - corr, group)
+    return acc.to(torch.int32).to(torch.float32) * xq.scale * wq.scale
 
 
 def _counts(counts: Union[torch.Tensor, Sequence[int]]) -> list:

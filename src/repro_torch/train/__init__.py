@@ -6,7 +6,8 @@ rematerialised units through the model), :func:`make_serve_step` and
 (:mod:`.checkpoint`); the retrying runner, straggler watch and elastic
 re-mesh (:mod:`.fault`); and the partition rules with their placement
 over ``torch.distributed`` ranks (:mod:`.sharding`): given a mesh of
-ranks, the train step and checkpoints are sharded.
+ranks, the train step, the serve step, prefill and checkpoints are
+sharded.
 """
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault import RetryingRunner, StragglerWatch, elastic_remesh

@@ -7,10 +7,14 @@ donates its buffers. The port's ``jit_for`` returns the step itself (no
 place and the decode states update in place
 (:func:`repro_torch.models.transformer.decode_step`), which is what the
 reference's donation buys. Over a mesh of ``torch.distributed`` ranks
-the train step is sharded as the reference's shardings say: tensor
-parallel over ``model`` (the blocks' layout), data parallel over
-``pod``/``data`` with ZeRO-1 (see :func:`make_train_step`; one process
-is the mesh of one device); serving and prefill stay unsharded.
+every step is sharded as the reference's shardings say (one process is
+the mesh of one device, where every collective is the identity): the
+train step tensor parallel over ``model`` (the blocks' layout), data
+parallel over ``pod``/``data`` with ZeRO-1 (see
+:func:`make_train_step`); the serve step and prefill the same way, on
+this rank's rows of the batch, with decode states placed by
+``state_shardings`` and the greedy token an argmax over the vocabulary
+shards (:func:`make_serve_step`, :func:`greedy_token`).
 
 ``make_train_step``: a microbatched (gradient-accumulation) AdamW step.
 Forward and backward run one microbatch at a time, so only one
@@ -26,15 +30,17 @@ import torch
 
 from repro_torch import dist
 from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models.blocks import tensor_parallel
 from repro_torch.models.model import Model, abstract_params
 from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_update
 from repro_torch.optim.compress import ef_compress_tree
 from repro_torch.tree import tree_flatten, tree_leaves
 
-from .sharding import (shard_leaf, shard_shape, spec_axes, spec_leaves,
+from .sharding import (shard_shape, spec_axes, spec_leaves,
                        train_state_specs)
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill",
+           "greedy_token", "batch_rows", "gather_rows"]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
@@ -47,9 +53,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
     explicit:
 
     * ``init_fn(seed=0, dtype=float32) -> (params, opt_state,
-      residual)``: the whole model from ``seed`` (so a run's numbers do
-      not depend on the mesh), each leaf sliced to this rank's shard by
-      its spec and ``requires_grad_``; AdamW's float32 ``m``/``v`` and,
+      residual)``: the whole model's draws from ``seed`` (so a run's
+      numbers do not depend on the mesh), each leaf sliced to this
+      rank's shard by its spec as it is drawn (``model.init(...,
+      mesh=mesh)``) and ``requires_grad_``; AdamW's float32 ``m``/``v`` and,
       under ``compress_grads``, the error-feedback residual, zero and
       placed by ZeRO-1 (``zero1_spec``: the parameter's spec plus
       ``data`` on its largest unsharded dimension that divides), else
@@ -79,12 +86,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    if mesh is None:
-        mesh = abstract_mesh((1, 1), ("data", "model"))
-    elif mesh.comm is None and mesh.size > 1:
-        raise ValueError(f"a mesh of {mesh.size} devices without process "
-                         f"groups: run one process a rank under "
-                         f"torch.distributed (make_host_mesh)")
+    mesh = _mesh_of_ranks(mesh)
     plan = _leaf_plan(mesh, abstract_params(model.cfg))
     axes = [leaf.axes for leaf in plan]
     dp = dist.mesh_axis(mesh, ("pod", "data"))
@@ -92,18 +94,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
     pod = dist.mesh_axis(mesh, ("pod",))
 
     def init_fn(seed=0, dtype=torch.float32):
-        whole = model.init(seed, dtype)
-        leaves, treedef = tree_flatten(whole)
-        del whole
-        placed, m, v, r = [], [], [], []
-        for k, leaf in enumerate(plan):
-            x, leaves[k] = leaves[k], None  # the whole leaf goes once sliced
-            zshape = shard_shape(mesh, tuple(x.shape), leaf.zspec)
-            placed.append(shard_leaf(mesh, x, leaf.spec).requires_grad_())
-            del x
+        placed, treedef = tree_flatten(model.init(seed, dtype, mesh=mesh))
+        m, v, r = [], [], []
+        for x, leaf in zip(placed, plan):
+            x.requires_grad_()
+            zshape = shard_shape(mesh, leaf.shape, leaf.zspec)
             for out in (m, v) + ((r,) if compress_grads else ()):
                 out.append(torch.zeros(zshape, dtype=torch.float32,
-                                       device=placed[-1].device))
+                                       device=x.device))
         count = torch.zeros((), dtype=torch.int32, device=placed[0].device)
         return (treedef.unflatten(placed),
                 OptState(treedef.unflatten(m), treedef.unflatten(v), count),
@@ -201,10 +199,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
 
 
 class _Leaf(NamedTuple):
-    """One parameter leaf's placement: its spec, its ZeRO-1 spec, the
-    dimension ZeRO-1 adds ``data`` on (None when none divides) and the
-    mesh axes its ZeRO-1 shard is sharded over."""
+    """One parameter leaf's placement: its whole shape, its spec, its
+    ZeRO-1 spec, the dimension ZeRO-1 adds ``data`` on (None when none
+    divides) and the mesh axes its ZeRO-1 shard is sharded over."""
 
+    shape: Tuple[int, ...]
     spec: tuple
     zspec: tuple
     zdim: Optional[int]
@@ -214,44 +213,115 @@ class _Leaf(NamedTuple):
 def _leaf_plan(mesh, whole) -> List[_Leaf]:
     ps, _, zs = train_state_specs(mesh, whole)
     plan = []
-    n = len(tree_leaves(whole))
-    for spec, zspec in zip(spec_leaves(ps, n), spec_leaves(zs, n)):
+    leaves = tree_leaves(whole)
+    n = len(leaves)
+    for x, spec, zspec in zip(leaves, spec_leaves(ps, n),
+                              spec_leaves(zs, n)):
         zdim = zspec.index("data") if "data" in zspec else None
-        plan.append(_Leaf(spec, zspec, zdim, spec_axes(zspec)))
+        plan.append(_Leaf(tuple(x.shape), spec, zspec, zdim,
+                          spec_axes(zspec)))
     return plan
 
 
-def make_serve_step(model: Model):
-    """Returns (serve_step, jit_for(params, states, batch)).
+def _mesh_of_ranks(mesh):
+    """``mesh``, or the one-device mesh for None; raises for a mesh of
+    several devices without process groups."""
+    if mesh is None:
+        return abstract_mesh((1, 1), ("data", "model"))
+    if mesh.comm is None and mesh.size > 1:
+        raise ValueError(f"a mesh of {mesh.size} devices without process "
+                         f"groups: run one process a rank under "
+                         f"torch.distributed (make_host_mesh)")
+    return mesh
+
+
+def batch_rows(mesh, n: int):
+    """This rank's rows of a global batch of ``n``: ``(take, dp)``,
+    ``take(x)`` the rank's block of ``x``'s rows over the data axes and
+    ``dp`` their :class:`ParallelAxis` when they divide ``n``
+    (``batch_shardings``), else the identity and None (the batch stays
+    whole on every rank)."""
+    dp = dist.mesh_axis(mesh, ("pod", "data"))
+    if dp.group is None or n % dp.size:
+        return (lambda x: x), None
+    m = n // dp.size
+    return (lambda x: x[dp.index * m:(dp.index + 1) * m]), dp
+
+
+def gather_rows(x: torch.Tensor, dp) -> torch.Tensor:
+    """The whole batch of the ranks' rows ``x`` (:func:`batch_rows`'
+    ``dp``; None: ``x`` is whole already)."""
+    return x if dp is None else dist.all_gather(x, dp.group, dim=0)
+
+
+def greedy_token(cfg, logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The greedy next token (B, 1) int32 of ``logits`` (B, S, V)' last
+    position: the first maximal index, as ``jnp.argmax``/``torch.argmax``
+    give it. Over a ``model`` axis the logits are this rank's shard of
+    the vocabulary: each rank takes its maximum and its first index (plus
+    the shard's offset), the ranks gather both (one collective, float64,
+    which holds a float32 and an index exactly), and the largest value
+    wins, the lowest rank (so the lowest index) on a tie."""
+    last = logits[:, -1]
+    tp = tensor_parallel(cfg, mesh)
+    if tp is None or last.shape[-1] == cfg.vocab_size:
+        return torch.argmax(last, dim=-1, keepdim=True).to(torch.int32)
+    idx = torch.argmax(last, dim=-1, keepdim=True)
+    val = torch.gather(last, -1, idx)
+    mine = torch.cat([val.to(torch.float64),
+                      (idx + tp.index * last.shape[-1]).to(torch.float64)],
+                     dim=-1)
+    every = dist.all_gather(mine[None], tp.group, dim=0)     # (tp, B, 2)
+    win = torch.argmax(every[..., 0], dim=0, keepdim=True)   # first max
+    return every[..., 1].gather(0, win)[0, :, None].to(torch.int32)
+
+
+def make_serve_step(model: Model, mesh=None):
+    """Returns (serve_step, jit_for(params, states, batch)), over
+    ``mesh`` as :func:`make_train_step` takes it.
 
     ``serve_step(params, states, token, position) -> (next_token,
-    states)``: one greedy decode step, ``next_token`` (B, 1) int32."""
+    states)``: one greedy decode step. Every rank passes the whole
+    ``token``/``position`` (B, 1) and gets the whole ``next_token`` (B, 1)
+    int32; it decodes its rows (:func:`batch_rows`) on its shards of
+    ``params`` and ``states`` (``model.init_decode_state(..., mesh=mesh)``,
+    updated in place), takes the greedy token over the vocabulary shards
+    (:func:`greedy_token`) and gathers the rows. ``jit_for`` returns
+    ``serve_step``."""
+    mesh = _mesh_of_ranks(mesh)
 
     def serve_step(params, states, token, position):
-        logits, states = model.decode_step(params, token, position, states)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return next_tok, states
+        rows, dp = batch_rows(mesh, token.shape[0])
+        logits, states = model.decode_step(params, rows(token),
+                                           rows(position), states,
+                                           mesh=mesh)
+        return gather_rows(greedy_token(model.cfg, logits, mesh), dp), states
 
     def jit_for(params_like, states_like, batch_like):
         return serve_step
     return serve_step, jit_for
 
 
-def make_prefill(model: Model):
-    """Returns (prefill, jit_for(params, batch)).
+def make_prefill(model: Model, mesh=None):
+    """Returns (prefill, jit_for(params, batch)), over ``mesh`` as
+    :func:`make_serve_step` takes it.
 
     ``prefill(params, batch) -> (B, 1)`` int32: the greedy next token
     after ``batch["tokens"]`` (with ``patches``/``frames`` for the VLM and
-    enc-dec families)."""
+    enc-dec families), the whole batch on every rank, each rank running
+    the forward on its rows and shards."""
+    mesh = _mesh_of_ranks(mesh)
 
     def prefill(params, batch):
+        rows, dp = batch_rows(mesh, batch["tokens"].shape[0])
         kwargs = {}
-        if model.cfg.family == "vlm":
-            kwargs["extra_embed"] = batch.get("patches")
-        if model.cfg.family == "encdec":
-            kwargs["enc_frames"] = batch.get("frames")
-        logits, _ = model.forward(params, batch["tokens"], **kwargs)
-        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        for key, arg, family in (("patches", "extra_embed", "vlm"),
+                                 ("frames", "enc_frames", "encdec")):
+            if model.cfg.family == family and batch.get(key) is not None:
+                kwargs[arg] = rows(batch[key])
+        logits, _ = model.forward(params, rows(batch["tokens"]), mesh=mesh,
+                                  **kwargs)
+        return gather_rows(greedy_token(model.cfg, logits, mesh), dp)
 
     def jit_for(params_like, batch_like):
         return prefill

@@ -311,20 +311,15 @@ def checkpoint_cases(rank: int, root: str, ref_dir: str):
 
 def refusal_cases(rank: int):
     """What sharding raises for: tensor parallelism (1, 2) on the block
-    kinds not ported, PIM scopes on (2, 1). ``{case: "Type: message"}``
-    on ranks 0-1."""
-    import dataclasses
+    kinds not ported. ``{case: "Type: message"}`` on ranks 0-1."""
     cpu = Engine("torch:device=cpu")
     tp = mesh_over_ranks((1, 2), AXES, [0, 1])
-    dp = mesh_over_ranks((2, 1), AXES, [0, 1])
     if tp.comm is None:
         return None
     out = {}
     runs = [(a, tp, get_config(a, smoke=True))
             for a in ("deepseek-moe-16b", "recurrentgemma-9b", "rwkv6-7b",
                       "pixtral-12b", "whisper-small")]
-    runs.append(("pim", dp, dataclasses.replace(
-        get_config("qwen3-8b", smoke=True), pim_linear_mode="pim")))
     for name, mesh, cfg in runs:
         model = build_model(cfg, engine=cpu)
         batch = stream(cfg)(0)
@@ -334,6 +329,46 @@ def refusal_cases(rank: int):
         except Exception as e:   # noqa: BLE001 -- reported to the test
             out[name] = f"{type(e).__name__}: {e}"
     return out
+
+
+def pim_train_case(rank: int):
+    """qwen3-8b smoke on the PIM path, on (2, 1) over ranks 0-1 and
+    (1, 2) over ranks 2-3, with the LM head alone and with every block
+    projection too: ``model.loss`` under ``pim_linear_mode="pim"``
+    (each data rank's share summed), and one train step under
+    ``"fake"`` (loss and grad_norm), against one rank. Returns the
+    rank's mesh and ``{(mode, block mode): (sharded, one rank)}``."""
+    import dataclasses
+    cpu = Engine("torch:device=cpu")
+    meshes = [mesh_over_ranks((2, 1), AXES, [0, 1]),
+              mesh_over_ranks((1, 2), AXES, [2, 3])]
+    mesh = next(m for m in meshes if m.comm is not None)
+    base = get_config("qwen3-8b", smoke=True)
+    batch = stream(base)(0)
+    dp = mesh.comm.axis(("data",))
+    rows = batch["tokens"].shape[0] // dp.size
+    mine = {k: v[dp.index * rows:(dp.index + 1) * rows]
+            for k, v in batch.items()}
+    out = {}
+    for blocks in ("none", "full"):
+        model = build_model(dataclasses.replace(
+            base, pim_linear_mode="pim", pim_block_mode=blocks), engine=cpu)
+        with torch.no_grad():
+            share = model.loss(model.init(0, mesh=mesh), mine, mesh)
+            out["pim", blocks] = (
+                [float(dist.all_reduce(share.clone(), dp.group))],
+                [float(model.loss(model.init(0), batch))])
+        model = build_model(dataclasses.replace(
+            base, pim_linear_mode="fake", pim_block_mode=blocks),
+            engine=cpu)
+        runs = []
+        for m in (mesh, None):
+            step, init_fn, _ = make_train_step(model, AdamWConfig(**OPT), m)
+            *_, metrics = step(*init_fn(0), batch)
+            runs.append([float(metrics["loss"]),
+                         float(metrics["grad_norm"])])
+        out["fake", blocks] = tuple(runs)
+    return mesh.axis_sizes, out
 
 
 def runner_case(rank: int, root: str, fail_rank: int = 3,
@@ -391,6 +426,7 @@ def misc_cases(rank: int, stacked, root: str, ref_dir: str):
             "compress": compress_case(rank),
             "ckpt": checkpoint_cases(rank, root, ref_dir),
             "refusals": refusal_cases(rank),
+            "pim_train": pim_train_case(rank),
             "runner": runner_case(rank, os.path.join(root, "runner"))}
 
 

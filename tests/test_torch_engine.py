@@ -219,3 +219,123 @@ def test_detect_and_fault_paths_run():
     bk = resolve_backend("torch:device=cpu,faults=sa0@1e-3")
     assert backend_fault_model(bk).p_sa0 == 1e-3
     assert eng.resident(8, rows=4, backend=bk).detect
+
+
+# ----------------------------------- resident programs and marshalling ----
+# The counterparts of tests/test_resident.py's program-truth and MAC
+# marshalling tests, on Engine("torch:device=cpu"), each also held
+# against the reference engine's own outputs.
+@pytest.mark.parametrize("n", [4, 8])
+def test_stage_program_truth(n):
+    """stage: (s_hi, c_hi, lo) -> un = NOT((s_hi+c_hi) mod 2^n) and
+    s_lo = lo, on the port and equal to the reference's pass."""
+    rng = np.random.default_rng(0)
+    hi = 1 << n
+    feed = {k: rng.integers(0, hi, 32) for k in ("s_hi", "c_hi", "lo")}
+    out = Engine(PORT[0]).compile("stage", n).run(feed)
+    ref = JaxEngine().compile("stage", n).run(feed)
+    want_un = [(hi - 1) ^ ((int(s) + int(c)) & (hi - 1))
+               for s, c in zip(feed["s_hi"], feed["c_hi"])]
+    assert [int(u) for u in out["un"]] == want_un
+    assert [int(v) for v in out["s_lo"]] == [int(v) for v in feed["lo"]]
+    for k in ("un", "s_lo"):
+        assert [int(v) for v in out[k]] == [int(v) for v in ref[k]]
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_recomb_program_truth(n):
+    """recomb: the drained token is lo + (((s_hi+c_hi) mod 2^n) << n),
+    on the port and equal to the reference's pass."""
+    rng = np.random.default_rng(1)
+    hi = 1 << n
+    feed = {k: rng.integers(0, hi, 32) for k in ("s_hi", "c_hi", "lo")}
+    out = Engine(PORT[0]).compile("recomb", n).run(feed)
+    ref = JaxEngine().compile("recomb", n).run(feed)
+    want = [int(lo) + (((int(s) + int(c)) & (hi - 1)) << n)
+            for lo, s, c in zip(feed["lo"], feed["s_hi"], feed["c_hi"])]
+    assert [int(v) for v in out["out"]] == want
+    assert [int(v) for v in ref["out"]] == want
+
+
+def test_mac_inputs_vectorized_matches_exact_planes():
+    """The int64 fast path (n <= 30) emits exactly the planes the
+    object-int definition specifies (the complemented u-stream and
+    carry-low planes included), and the reference's planes."""
+    from repro.core.bits import to_bits
+    eng = Engine(PORT[0])
+    n = 8
+    rng = np.random.default_rng(7)
+    rows = 16
+    a = rng.integers(0, 1 << n, rows)
+    b = rng.integers(0, 1 << n, rows)
+    s = rng.integers(0, 1 << (2 * n - 1), rows)
+    c = rng.integers(0, 1 << (2 * n - 1), rows)
+    got = eng.mac_inputs(n, a, b, s, c)
+    m = (1 << n) - 1
+    u = np.array([(int(si) >> n) + (int(ci) >> n)
+                  for si, ci in zip(s, c)], dtype=object)
+    assert np.array_equal(got["a"], to_bits(a.astype(object), n))
+    assert np.array_equal(got["b"], to_bits(b.astype(object), n))
+    assert np.array_equal(got["un"], 1 - to_bits(u, n))
+    assert np.array_equal(got["s_lo"], to_bits([int(v) & m for v in s], n))
+    assert np.array_equal(got["c_lo"], to_bits([int(v) & m for v in c], n))
+    assert np.array_equal(got["c_lo_n"], 1 - got["c_lo"])
+    for v in got.values():
+        assert v.dtype == np.uint8 or v.max() <= 1
+    ref = JaxEngine().mac_inputs(n, a, b, s, c)
+    assert set(ref) == set(got)
+    for k in ref:
+        assert np.array_equal(np.asarray(got[k]), np.asarray(ref[k])), k
+
+
+def test_mac_inputs_wide_object_path_matches_fast_path_semantics():
+    """n > 30 falls back to exact object ints; mac_inputs -> compiled mac
+    -> mac_accumulate stays exact at both widths, and equals the
+    reference's round trip."""
+    eng = Engine(PORT[0])
+    ref = JaxEngine()
+    for n in (8, 32):
+        rng = np.random.default_rng(n)
+        hi = 1 << min(16, n)
+        a = np.array([int(v) for v in rng.integers(0, hi, 4)], dtype=object)
+        b = np.array([int(v) for v in rng.integers(0, hi, 4)], dtype=object)
+        z = np.zeros(4, dtype=object)
+        s, c = eng.mac_accumulate(n, eng.compile("mac", n).run(
+            eng.mac_inputs(n, a, b, z, z)))
+        assert [int(si) + int(ci) for si, ci in zip(s, c)] \
+            == [int(x) * int(y) for x, y in zip(a, b)]
+        rs, rc = ref.mac_accumulate(n, ref.compile("mac", n).run(
+            ref.mac_inputs(n, a, b, z, z)))
+        assert [int(v) for v in s] == [int(v) for v in rs]
+        assert [int(v) for v in c] == [int(v) for v in rc]
+
+
+def test_mac_inputs_overflow_raises_on_both_paths():
+    """A u-stream past 2^n raises OverflowError on the fast path (n = 8)
+    and the object path (n = 31), as the reference's does."""
+    for eng in (Engine(PORT[0]), JaxEngine()):
+        bad = np.array([1 << 15], dtype=object)   # u-stream > 2^8
+        with pytest.raises(OverflowError):
+            eng.mac_inputs(8, [1], [1], bad, bad)
+        with pytest.raises(OverflowError):
+            eng.mac_inputs(31, [1], [1], [1 << 61], [1 << 61])
+
+
+def test_mac_accumulate_vectorized_matches_object_path():
+    """``_mac_accumulate`` on random planes: s = lo + (s_hi << n), c =
+    c_hi << n as object ints, equal to the reference's."""
+    from repro.core.bits import from_bits
+    rng = np.random.default_rng(9)
+    n, rows = 8, 12
+    out = {k: rng.integers(0, 2, (rows, n)).astype(np.uint8)
+           for k in ("lo", "s_hi", "c_hi")}
+    s, c = Engine._mac_accumulate(n, out)
+    lo, s_hi, c_hi = (from_bits(out["lo"]), from_bits(out["s_hi"]),
+                      from_bits(out["c_hi"]))
+    assert [int(v) for v in s] == [
+        int(lo_) + (int(sh) << n) for lo_, sh in zip(lo, s_hi)]
+    assert [int(v) for v in c] == [int(ch) << n for ch in c_hi]
+    assert s.dtype == object and c.dtype == object
+    rs, rc = JaxEngine._mac_accumulate(n, out)
+    assert [int(v) for v in s] == [int(v) for v in rs]
+    assert [int(v) for v in c] == [int(v) for v in rc]

@@ -28,8 +28,10 @@ taken through ``convert.params_from_numpy``.
   ZeRO-1 shards against the whole leaves, bit for bit.
 * Checkpoints saved on (2, 2) restored on (1, 2) and unsharded, and one
   saved by the reference restored on (2, 2).
-* What raises: tensor parallelism on an unported block kind, PIM scopes
-  on a mesh of more than one rank.
+* What raises: tensor parallelism on an unported block kind.
+* PIM scopes on a mesh: qwen3-8b's loss on the PIM path (the LM head,
+  then every projection), and one train step quantised in ``"fake"``
+  mode, on (2, 1) and (1, 2) against one rank.
 
 Tolerances, with their reasons: only the order of float32 sums changes
 (over ranks, and within the shards' matmuls), so logits, gradients,
@@ -324,17 +326,35 @@ def test_reference_checkpoint_restores_sharded(misc_results):
 
 
 def test_unported_sharding_raises(misc_results):
-    """Tensor parallelism on MoE, RG-LRU, RWKV, the VLM and enc-dec, and
-    PIM scopes on a mesh of more than one rank, raise
+    """Tensor parallelism on MoE, RG-LRU, RWKV, the VLM and enc-dec raises
     ``NotImplementedError`` naming the ROADMAP item."""
     out, _, _ = misc_results
     for r in (0, 1):
         got = out[r]["refusals"]
         assert set(got) == {"deepseek-moe-16b", "recurrentgemma-9b",
-                            "rwkv6-7b", "pixtral-12b", "whisper-small",
-                            "pim"}
+                            "rwkv6-7b", "pixtral-12b", "whisper-small"}
         for name, msg in got.items():
             assert msg.startswith("NotImplementedError") and "ROADMAP" in msg
+
+
+def test_pim_scoped_loss_and_step_on_a_mesh_match_one_rank(misc_results):
+    """qwen3-8b smoke on the PIM path (the LM head alone, and every block
+    projection too): the loss under ``pim_linear_mode="pim"`` (its scales
+    the whole tensors', over the data ranks' rows and, row-parallel, the
+    model ranks' columns) and one train step under ``"fake"`` (the
+    scales' gradients reduced with them) on (2, 1) and (1, 2), against
+    one rank: losses and the step's grad_norm within 1e-5 relative."""
+    out, _, _ = misc_results
+    meshes = set()
+    for r in out:
+        mesh, got = r["pim_train"]
+        meshes.add(tuple(mesh))
+        assert set(got) == {(m, b) for m in ("pim", "fake")
+                            for b in ("none", "full")}
+        for key, (sharded, one) in got.items():
+            for a, b in zip(sharded, one):
+                assert abs(a - b) <= TOL * abs(b), (mesh, key, sharded, one)
+    assert meshes == {(2, 1), (1, 2)}
 
 
 def test_runner_restores_every_rank_when_one_fails(misc_results):
