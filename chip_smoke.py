@@ -196,20 +196,39 @@ and raises on any failure. Phases, one line each:
     its mesh, each rank's peak beside one rank's, and prefill seconds,
     decode tokens/s and token p50/p99 printed as what they are: two
     ranks sharing one card, every collective through gloo on the host;
-29. one JSON line describing each kernel;
-30. ``{"ok": true, "device": {...}}`` as the last line.
+29. ``tp_families``: the launchers under ``python -m
+    torch.distributed.run`` with ``--dist-backend gloo`` on (1, 2), two
+    ranks sharing the card, on the five families whose tensor
+    parallelism came last, each against a one-rank run of the same
+    launcher at that depth in this process (freed before the ranks
+    start): (a) deepseek-moe-16b at full width (64 experts, top 6, 2
+    shared, vocabulary 102,400) cut to 8 of 28 layers, served with every
+    projection on the PIM path (experts over the model axis, their
+    scales over the whole stack), traced (``_profile_pass`` launches K1
+    on rank 0); (b) deepseek-moe-16b cut to 4 layers, trained 3 steps of
+    4 x 1,024 tokens in 2 microbatches; (c) rwkv6-7b cut to 8 layers,
+    (d) recurrentgemma-9b cut to 6 layers (two ``rrl`` units) and (e)
+    whisper-small at full width and depth with its frames, served: tokens
+    equal (or losses, lr and grad norms within 1e-5 relative), 0
+    recompiles during decode on every rank, each rank's placed bytes
+    equal to the dry-run's count for its mesh, each rank's peak below
+    one rank's, and the step times and tokens/s printed as what they
+    are: two ranks sharing one card, every collective through gloo on
+    the host;
+30. one JSON line describing each kernel;
+31. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
-replays and each run of 19, and read just after (28's run (a) starts
-fresh processes, whose counts start at 0, and its rank 0 writes its
-count into the launcher's ``--summary``) (one K3 launch per
+replays and each run of 19, and read just after (28's and 29's runs
+(a) start fresh processes, whose counts start at 0, and their rank 0
+writes its count into the launcher's ``--summary``) (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
 12's timing, 14, 15's group tables and 16 do not count (17, 18 and
-20-27 and 28's runs (b) and (c) launch no kernel: the model path takes
-the integer products with
-torch matmuls, as the reference takes them in XLA, training runs the
+20-27, 28's runs (b) and (c) and 29's (b) to (e) launch no kernel: the
+model path takes the integer products with torch matmuls, as the
+reference takes them in XLA, training runs the
 float path, whose gradients the reference takes in XLA too, and the
 dry-run traces fake tensors and checks itself on the float path). The
 program cache spills to an empty directory under ``build/`` for the run
@@ -382,6 +401,23 @@ SERVE_SHARDED_RUNS = (("a", "gemma2-9b", None, (1, 2)),
                       ("b", "granite-20b", 8, (1, 2)),
                       ("c", "gemma2-9b", 12, (2, 1)))
 SERVE_SHARDED_CACHE = 128            # the launcher's default --cache-len
+# The tensor-parallel families: the launchers on (1, 2), two ranks
+# sharing the card (gloo), each against a one-rank run at that depth in
+# this process, as (run, launcher, arch, layers (None: all), arguments).
+# Serving: batch 4, prompt 32, 8 tokens; training: 3 steps of 4 x 1,024
+# tokens in 2 microbatches (float32 parameters, gradients, accumulator
+# and AdamW moments: 20 B a parameter on one rank).
+TP_FAMILY_SERVE = ["--batch", str(SERVE_BATCH), "--prompt-len",
+                   str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+TP_FAMILY_RUNS = (
+    ("a", "serve", "deepseek-moe-16b", 8,
+     TP_FAMILY_SERVE + ["--pim", "--pim-scope", "full"]),
+    ("b", "train", "deepseek-moe-16b", 4,
+     ["--steps", "3", "--seq-len", "1024", "--global-batch", "4",
+      "--microbatches", "2"]),
+    ("c", "serve", "rwkv6-7b", 8, TP_FAMILY_SERVE),
+    ("d", "serve", "recurrentgemma-9b", 6, TP_FAMILY_SERVE),
+    ("e", "serve", "whisper-small", None, TP_FAMILY_SERVE))
 ELASTIC_ARGS = ["--arch", "deepseek-7b", "--smoke", "--model-parallel",
                 "2", "--survivors", "2", "--steps", "4", "--more", "3"]
 BUILD = Path(__file__).resolve().parent / "build"
@@ -2140,6 +2176,133 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
     return k1
 
 
+def tp_families_phase(smi: str) -> int:
+    """Phase 29: the launchers on (1, 2) over two ranks sharing the card
+    for MoE, RWKV-6, RG-LRU and enc-dec, each against one rank in this
+    process (see the module docstring). Returns run a's K1 launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (_tree_bytes, abstract_states,
+                                           train_state_bytes)
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.model import abstract_params
+    from repro_torch.train.sharding import param_shardings, state_shardings
+    t_phase = time.perf_counter()
+    backend = ("gloo (both ranks on one card, every collective through "
+               "the host)")
+    k1 = 0
+    for run_id, kind, arch, layers, extra in TP_FAMILY_RUNS:
+        t_run = time.perf_counter()
+        cfg = get_config(arch)
+        argv = ["--arch", arch] + extra
+        if layers is not None:
+            cfg = cfg.scaled(n_layers=layers)
+            argv += ["--override", json.dumps({"n_layers": layers})]
+        mesh = abstract_mesh((1, 2), ("data", "model"))
+        params = abstract_params(cfg, torch.float32)
+        name = f"tp_families {run_id} ({arch})"
+        summary = BUILD / f"tp_families_{run_id}.json"
+        trace = BUILD / f"tp_families_{run_id}_trace.json"
+        if kind == "train":
+            one, peak, one_s = one_rank_run(argv, cfg.n_layers)
+            check(len(one.losses) == 3 and all(np.isfinite(one.losses)),
+                  f"{name}: one-rank losses {one.losses}")
+            one_fields = dict(losses=json.dumps(one.losses),
+                              step_s=json.dumps(one.step_s),
+                              wall_s=round(one_s, 1))
+            want = {"losses": one.losses, "lrs": one.lrs,
+                    "grad_norms": one.grad_norms}
+            module = "repro_torch.launch.train"
+            spec_count = [train_state_bytes(cfg, mesh, params)]
+        else:
+            one, peak = serve_one_rank(argv)
+            check(one.recompiles == 0,
+                  f"{name}: one rank recompiled {one.recompiles}")
+            one_fields = dict(
+                prefill_s=round(one.prefill_s, 4),
+                decode_tok_s=round(SERVE_BATCH * one.tokens_per_s, 3),
+                token_p50_us=round(one.latency_us(50), 1),
+                token_p99_us=round(one.latency_us(99), 1))
+            want = one.tokens
+            module = "repro_torch.launch.serve"
+            states = abstract_states(cfg, SERVE_BATCH, SERVE_SHARDED_CACHE,
+                                     torch.float32)
+            spec_count = [_tree_bytes(mesh, params,
+                                      param_shardings(mesh, params)),
+                          _tree_bytes(mesh, states,
+                                      state_shardings(mesh, states))]
+        del one
+        phase("tp_families", run=run_id, mesh="1x1", launcher=kind,
+              arch=cfg.name, layers=cfg.n_layers, peak_bytes=peak,
+              **one_fields)
+        traced = ["--trace", str(trace)] if run_id == "a" else []
+        wall = run_ranks(2, module, argv + traced + [
+            "--model-parallel", "2", "--dist-backend", "gloo",
+            "--summary", str(summary)])
+        got = json.loads(summary.read_text())
+        summary.unlink()
+        trace.unlink(missing_ok=True)
+        check(got["mesh"] == {"data": 1, "model": 2},
+              f"{name}: mesh {got['mesh']}")
+        check(all(p < peak for p in got["peak_bytes"]),
+              f"{name}: rank peaks {got['peak_bytes']} not below one "
+              f"rank's {peak}")
+        fields = {}
+        if kind == "train":
+            for key, rtol in (("losses", TRAIN_SHARDED_LOSS_RTOL),
+                              ("lrs", TRAIN_SHARDED_LOSS_RTOL),
+                              ("grad_norms", TRAIN_SHARDED_NORM_RTOL)):
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(got[key], want[key]))
+                check(len(got[key]) == len(want[key]) and err <= rtol,
+                      f"{name}: {key} {got[key]} against one rank's "
+                      f"{want[key]} (relative {err} > {rtol})")
+                fields[key + "_rel_err"] = err
+            check(got["placed_bytes"] == spec_count * 2,
+                  f"{name}: placed {got['placed_bytes']}, the dry-run "
+                  f"counts {spec_count}")
+            fields.update(losses=json.dumps(got["losses"]),
+                          placed_bytes=json.dumps(got["placed_bytes"]),
+                          step_s_shared_card=json.dumps(got["step_s"]))
+        else:
+            check(np.array_equal(np.asarray(got["tokens"]), want),
+                  f"{name}: tokens {got['tokens']} against one rank's "
+                  f"{want.tolist()}")
+            check(got["rank_recompiles"] == [0, 0],
+                  f"{name}: recompiles by rank {got['rank_recompiles']}")
+            check([got["param_bytes"], got["state_bytes"]]
+                  == [[c] * 2 for c in spec_count],
+                  f"{name}: placed {got['param_bytes']} and "
+                  f"{got['state_bytes']}, the dry-run counts {spec_count}")
+            if run_id == "a":
+                check(got["launches"]["K1"] >= 1
+                      and got["launches"]["K2"] == 0,
+                      f"{name}: rank 0 launched {got['launches']}")
+                k1 += got["launches"]["K1"]
+            fields.update(
+                tokens_equal=True, sample=json.dumps(got["tokens"][0]),
+                recompiles=json.dumps(got["rank_recompiles"]),
+                k1_launches=got["launches"]["K1"],
+                param_bytes=json.dumps(got["param_bytes"]),
+                state_bytes=json.dumps(got["state_bytes"]),
+                prefill_s_shared_card=round(got["prefill_s"], 4),
+                decode_tok_s_shared_card=round(
+                    SERVE_BATCH * got["tokens_per_s"], 3),
+                token_p50_us=round(got["token_p50_us"], 1),
+                token_p99_us=round(got["token_p99_us"], 1))
+        phase("tp_families", run=run_id, mesh="1x2", ranks=2,
+              launcher=kind, arch=cfg.name, layers=cfg.n_layers,
+              d_model=cfg.d_model, backend=backend, **fields,
+              spec_count=json.dumps(spec_count),
+              peak_bytes=json.dumps(got["peak_bytes"]),
+              one_rank_peak=peak, wall_s=round(wall, 1),
+              seconds=round(time.perf_counter() - t_run, 1),
+              card=json.dumps(smi))
+    obs.reset_trace()
+    phase("tp_families", seconds=round(time.perf_counter() - t_phase, 1))
+    return k1
+
+
 def serve_tables(eng) -> list:
     """The n = 8 tables the serve path runs, as (name, packed, words):
     the resident chain's programs and the detect-mode residue check at
@@ -2590,10 +2753,13 @@ def run_phases() -> None:
     # ---------------------------------------- 28. sharded serving ----
     main_launches["K1"] += serve_sharded_phase(smi, probe, serve_tokens,
                                                serve_peak)
+
+    # ------------------------------- 29. tensor-parallel families ----
+    main_launches["K1"] += tp_families_phase(smi)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
-    # ------------------------------------------------- 29. kernels line ----
+    # ------------------------------------------------- 30. kernels line ----
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     k1_main = k1_rows[0]            # multpim N=32, the front door's pass
     k3_main = next(r for r in k3["rows"] if r["name"] == "ffn.gate_up")

@@ -23,12 +23,17 @@ mesh axes, and collectives called by hand where GSPMD would insert them.
   which is what GSPMD inserts for the partition rules:
   :func:`copy_to_parallel` (identity forward, all-reduce backward: into
   a column-parallel region), :func:`reduce_from_parallel` (all-reduce
-  forward, identity backward: out of a row-parallel one) and
+  forward, identity backward: out of a row-parallel one),
   :func:`gather_from_parallel` (all-gather forward, reduce-scatter
-  backward), and :func:`max_from_parallel` (a quantisation scale's
-  maximum over the ranks that split its tensor, with the maximum's
-  gradient). A collective over a ``None`` group (an axis of size 1) is
-  the identity.
+  backward: a sharded leaf made whole inside a parallel region),
+  :func:`gather_out_of_parallel` (all-gather forward, this rank's slice
+  backward: a column-parallel result made whole for the replicated
+  stream), :func:`sum_in_parallel` (all-reduce forward and backward: a
+  partial sum that each rank then uses on its own slice, as a norm over
+  a split dimension), and :func:`max_from_parallel` (a quantisation
+  scale's maximum over the ranks that split its tensor, with the
+  maximum's gradient). A collective over a ``None`` group (an axis of
+  size 1) is the identity.
 
 Gloo takes CUDA tensors for every collective used here in the torch of
 the card's machine (2.11; :func:`probe_gloo_cuda`, ``python -m
@@ -61,7 +66,8 @@ __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
            "all_reduce_by_axes", "all_reduce_max", "all_gather",
            "reduce_scatter", "broadcast", "broadcast_int", "all_gather_ints",
            "barrier", "copy_to_parallel", "reduce_from_parallel",
-           "gather_from_parallel", "max_from_parallel"]
+           "gather_from_parallel", "gather_out_of_parallel",
+           "sum_in_parallel", "max_from_parallel"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -415,6 +421,19 @@ class _GatherFromParallel(torch.autograd.Function):
         return reduce_scatter(grad, ctx.group, ctx.dim), None, None
 
 
+class _GatherOutOfParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index = dist.get_rank(ctx.group)
+        return (grad.narrow(ctx.dim, index * ctx.n, ctx.n).contiguous(), None,
+                None)
+
+
 class _MaxFromParallel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -429,6 +448,27 @@ class _MaxFromParallel(torch.autograd.Function):
         both = all_reduce(torch.stack([grad, held.to(grad.dtype)]),
                           ctx.group)
         return torch.where(held, both[0] / both[1], 0.0), None
+
+
+def gather_out_of_parallel(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A column-parallel result (each rank's slice along ``dim``) made
+    whole for the replicated stream: the all-gather forward; backward,
+    this rank's slice of the gradient, which every rank holds whole and
+    the same (Megatron's gather out of the tensor-parallel region)."""
+    if group is None:
+        return x
+    return _GatherOutOfParallel.apply(x, group, dim % x.ndim)
+
+
+def sum_in_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``group`` where each rank
+    goes on to use it on its own slice of a split dimension (the mean
+    square of a norm over it): the all-reduce forward, and backward the
+    gradients' sum, since each rank's gradient holds only its slice's
+    part."""
+    if group is None:
+        return x
+    return copy_to_parallel(reduce_from_parallel(x, group), group)
 
 
 def max_from_parallel(x: torch.Tensor, group) -> torch.Tensor:

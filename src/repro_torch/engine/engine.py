@@ -770,7 +770,7 @@ class Engine:
         return y
 
     def ragged_linear(self, xs, we, counts, *, n_bits: int = 8,
-                      mode: str = "pim", x_group=None):
+                      mode: str = "pim", x_group=None, k_group=None):
         """MoE dropless per-expert grouped GEMM under MultPIM fixed-point
         semantics: ``xs`` (T, D) expert-sorted rows, ``we`` (E, D, F)
         per-expert weight stack, ``counts`` (E,) ragged segment lengths.
@@ -781,9 +781,18 @@ class Engine:
         (:func:`repro_torch.pim.quant.qragged_matmul_exact`), compiled
         and accounted through this engine's shared co-scheduled MAC
         group exactly like the dense projections. Rows past
-        ``sum(counts)`` are zero. ``x_group``: the ranks over which the
-        tokens are split (the data axes); ``xs``'s scale is the maximum
-        over them.
+        ``sum(counts)`` are zero.
+
+        On a mesh of ranks the scales are the whole tensors', as the
+        reference quantises the whole ``(E, D, F)`` stack and every
+        routed row: ``x_group`` is the process group over which the
+        tokens are split (the data axes), ``k_group`` the one over which
+        the experts are (expert parallelism: ``we`` holds this rank's
+        experts, ``xs`` the rows routed to them, ``counts`` their
+        segments). ``xs``'s amax is the maximum over both, ``we``'s over
+        ``k_group`` (the two in one collective, :func:`_global_amax`).
+        Each expert's integer product is then the unsplit one's, bit for
+        bit.
         """
         from repro_torch.pim.quant import (amax_of, dequantize,
                                            qragged_matmul_exact, quantize,
@@ -793,9 +802,9 @@ class Engine:
             return ragged_dot(xs, we, counts)
         if mode not in ("fake", "pim"):
             raise ValueError(mode)
-        xq = quantize(xs, n_bits,
-                      amax=dist.max_from_parallel(amax_of(xs), x_group))
-        wq = quantize(we, n_bits)
+        xa, wa = _global_amax(amax_of(xs), amax_of(we), x_group, k_group)
+        xq = quantize(xs, n_bits, amax=xa)
+        wq = quantize(we, n_bits, amax=wa)
         if mode == "fake":
             return ragged_dot(dequantize(xq), dequantize(wq), counts)
         self._compile_mac_group(n_bits)
@@ -803,9 +812,9 @@ class Engine:
 
 
 def _global_amax(xa: torch.Tensor, wa: torch.Tensor, x_group, k_group):
-    """``x``'s amax (a scalar) and ``w``'s column amax (1, N) over the
-    ranks that split them: ``x``'s over ``x_group``, then both over
-    ``k_group`` in one collective."""
+    """``x``'s amax (a scalar) and ``w``'s amax (its column amax (1, N),
+    or a scalar) over the ranks that split them: ``x``'s over
+    ``x_group``, then both over ``k_group`` in one collective."""
     xa = dist.max_from_parallel(xa, x_group)
     if k_group is None:
         return xa, wa

@@ -23,16 +23,36 @@ them are plain ``@``. MoE dispatch is dropless sort -> grouped GEMM ->
 scatter-add, so prefill and decode agree.
 
 ``tp`` (:func:`tensor_parallel`) is this rank's place on the mesh's
-``model`` axis, or None. Under it the attention and MLP blocks of the
-dense decoders compute their shard in Megatron's layout, which is what
-GSPMD makes of the partition rules: the q/k/v and w1/w3 projections
-column-parallel on this rank's heads and columns, ``wo`` and ``w2``
-row-parallel, followed by the sum over ranks. Their decode state is this
-rank's shard of the KV cache as ``state_shardings`` places it: its KV
-heads, or, where the KV heads do not split over the axis, its slots of
-the sequence (attention then combines the ranks' partial softmaxes,
-:func:`repro_torch.models.attention.decode_attend_split`). Every other
-block kind raises ``NotImplementedError`` under it.
+``model`` axis, or None. Under it every block kind computes its shard in
+Megatron's layout, which is what GSPMD makes of the partition rules
+(``repro_torch.train.sharding``), with the collectives written out
+(:mod:`repro_torch.dist`):
+
+* attention (self and cross): q/k/v column-parallel on this rank's
+  heads, the out-projection row-parallel, then the sum over ranks; the
+  decode state is this rank's shard of the KV cache as
+  ``state_shardings`` places it: its KV heads, or, where the KV heads do
+  not split over the axis, its slots of the sequence (attention then
+  combines the ranks' partial softmaxes,
+  :func:`repro_torch.models.attention.decode_attend_split`);
+* the MLPs: w1/w3 column-parallel, w2 row-parallel, at the block's own
+  width (a dense block inside a MoE stack, the shared experts);
+* MoE: expert parallelism. Every rank routes every token with the whole
+  router and computes the routed pairs of its experts; the gated
+  outputs are summed over the ranks;
+* RG-LRU: channel-parallel (the in-projections column-parallel, the
+  conv, gates and scan on this rank's channels, ``wo`` row-parallel);
+* RWKV-6: head-parallel time mix (its group-norm proxy's mean square
+  summed over the ranks) and a channel mix with ``ck`` column- and
+  ``cv`` row-parallel; the token-shift states are this rank's channels,
+  gathered whole each step.
+
+A replicated leaf used inside a parallel region passes through
+``copy_to_parallel``, so its gradient is summed over the ranks. A leaf
+that the rules keep whole because its dimension does not divide the
+axis is used whole: a ``d_ff`` that does not split runs the whole MLP on
+every rank, experts that do not split all run on every rank, and neither
+is summed.
 
 ``dp`` is this rank's place on the data axes (``pod``, ``data``), over
 which the rows of ``x`` are split, or None. Only the PIM projections
@@ -59,10 +79,6 @@ from .layers import Initializer, rms_norm, rope
 __all__ = ["init_block", "apply_block", "init_state", "pim_proj",
            "tensor_parallel", "data_parallel"]
 
-# The ROADMAP item that ports what raises here under a sharded mesh.
-TP_TODO = ("ROADMAP A: tensor parallelism for MoE, RG-LRU, RWKV, the VLM "
-           "and enc-dec")
-
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
@@ -81,19 +97,23 @@ def tensor_parallel(cfg: ModelConfig, mesh):
     ``model`` axis of ``mesh``, or None when there is no mesh of ranks
     or that axis holds one rank.
 
-    Raises ``NotImplementedError`` under a ``model`` axis for any model
-    but a dense decoder of attention blocks with heads that split over
-    it."""
+    Raises ``NotImplementedError`` where the split cannot be done: query
+    heads that do not divide the axis or do not align with the KV
+    groups, and RWKV heads (``d_model / rwkv_head_dim``) that do not
+    divide it."""
     if mesh is None or getattr(mesh, "comm", None) is None:
         return None
     tp = dist.mesh_axis(mesh, ("model",))
     if tp.size == 1:
         return None
-    kinds = set(cfg.layer_kinds())
-    if cfg.family != "decoder" or not kinds <= {"g", "l"}:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}, block kinds "
-            f"{sorted(kinds)} under a model axis of {tp.size}: {TP_TODO}")
+    if cfg.family == "rwkv":
+        nh = cfg.d_model // cfg.rwkv_head_dim
+        if nh % tp.size:
+            raise NotImplementedError(
+                f"{cfg.name}: {nh} RWKV heads (d_model {cfg.d_model} / "
+                f"{cfg.rwkv_head_dim}) do not split over a model axis of "
+                f"{tp.size}")
+        return tp               # no attention block
     if cfg.n_heads % tp.size:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} heads do not split over a model "
@@ -116,6 +136,16 @@ def data_parallel(mesh):
 
 def _group(axis):
     return None if axis is None else axis.group
+
+
+def _tp_range(full: int, tp):
+    """This rank's ``[lo, hi)`` of a dimension of ``full`` that the rules
+    split over ``tp``, or None when it does not divide (its leaves stay
+    whole) or there is no model axis."""
+    if tp is None or full % tp.size:
+        return None
+    n = full // tp.size
+    return tp.index * n, (tp.index + 1) * n
 
 
 def _tp_cols(w: torch.Tensor, lo: int, hi: int, full: int, tp,
@@ -168,17 +198,19 @@ def pim_proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, *,
 
 
 def _pim_ragged(cfg: ModelConfig, xs: torch.Tensor, we: torch.Tensor,
-                counts: torch.Tensor, *, engine=None,
-                dp=None) -> torch.Tensor:
+                counts, *, engine=None, dp=None, ep=None) -> torch.Tensor:
     """MoE per-expert grouped GEMM, PIM-offloaded under the ``"ffn"``
-    scope (the expert FFNs are the block's FFN projections); ``xs``'s
-    scale is the maximum over ``dp``."""
+    scope (the expert FFNs are the block's FFN projections). ``xs``'s
+    scale is the maximum over ``dp``; under expert parallelism (``ep``,
+    the model axis that splits the experts) both scales are also the
+    maxima over its ranks: the whole stack's and every routed row's."""
     if "ffn" not in cfg.pim_scopes():
         return ragged_dot(xs, we, counts)
     mode = "pim" if cfg.pim_linear_mode == "off" else cfg.pim_linear_mode
     return _engine(engine).ragged_linear(xs, we, counts,
                                          n_bits=cfg.pim_linear_bits,
-                                         mode=mode, x_group=_group(dp))
+                                         mode=mode, x_group=_group(dp),
+                                         k_group=_group(ep))
 
 
 # ============================================================ attention ====
@@ -206,11 +238,13 @@ def _init_mlp(cfg: ModelConfig, ini: Initializer, d_ff: int) -> Dict[str, Any]:
 
 
 def _apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
-               engine=None, tp=None, dp=None):
+               d_ff: int, engine=None, tp=None, dp=None):
     # Same math as layers.swiglu/gelu_mlp, with each projection routed
-    # through the PIM hook (plain matmul when the scope is off).
-    if tp is not None and cfg.d_ff % tp.size == 0:
-        return _apply_mlp_tp(cfg, p, x, tp, engine, dp)
+    # through the PIM hook (plain matmul when the scope is off). ``d_ff``
+    # is this MLP's whole width (the block's, which ``_init_mlp`` drew):
+    # a shard's leaves do not tell it.
+    if tp is not None and d_ff % tp.size == 0:
+        return _apply_mlp_tp(cfg, p, x, d_ff, tp, engine, dp)
     kw = dict(scope="ffn", engine=engine, dp=dp)
     h1 = pim_proj(cfg, x, p["w1"], **kw)
     if "w3" in p:
@@ -219,22 +253,21 @@ def _apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     return pim_proj(cfg, _gelu(h1), p["w2"], **kw)
 
 
-def _apply_mlp_tp(cfg: ModelConfig, p, x, tp, engine, dp):
+def _apply_mlp_tp(cfg: ModelConfig, p, x, d_ff: int, tp, engine, dp):
     """The MLP on this rank's ``d_ff / tp`` columns: ``w1``/``w3``
     column-parallel, ``w2`` row-parallel, then the sum over ranks. (A
     ``d_ff`` that does not split keeps every weight whole, and every
     rank computes the whole MLP.)"""
-    f = cfg.d_ff // tp.size
-    lo, hi = tp.index * f, (tp.index + 1) * f
+    lo, hi = _tp_range(d_ff, tp)
     kw = dict(scope="ffn", engine=engine, dp=dp)
     xp = dist.copy_to_parallel(x, tp.group)
-    h1 = pim_proj(cfg, xp, _tp_cols(p["w1"], lo, hi, cfg.d_ff, tp), **kw)
+    h1 = pim_proj(cfg, xp, _tp_cols(p["w1"], lo, hi, d_ff, tp), **kw)
     if "w3" in p:
         h = F.silu(h1) * pim_proj(
-            cfg, xp, _tp_cols(p["w3"], lo, hi, cfg.d_ff, tp), **kw)
+            cfg, xp, _tp_cols(p["w3"], lo, hi, d_ff, tp), **kw)
     else:
         h = _gelu(h1)
-    return pim_proj(cfg, h, _tp_cols(p["w2"], lo, hi, cfg.d_ff, tp, dim=-2),
+    return pim_proj(cfg, h, _tp_cols(p["w2"], lo, hi, d_ff, tp, dim=-2),
                     tp=tp, **kw)
 
 
@@ -265,18 +298,38 @@ def _tp_heads(cfg: ModelConfig, tp):
     return q0, hq, k0, k1 - k0
 
 
+def _heads_tp(cfg: ModelConfig, xp, w, h0: int, nh: int, full: int, tp,
+             **kw) -> torch.Tensor:
+    """``xp`` (B, S, D) through heads ``[h0, h0 + nh)`` of the
+    column-parallel ``w`` (``full`` columns whole): (B, S, nh, hd)."""
+    b, s, _ = xp.shape
+    hd = cfg.hd
+    return pim_proj(cfg, xp, _tp_cols(w, h0 * hd, (h0 + nh) * hd, full, tp),
+                    **kw).reshape(b, s, nh, hd)
+
+
+def _out_tp(cfg: ModelConfig, o, w, tp, *, pim: bool = True, **kw):
+    """The row-parallel out-projection of ``o`` (B, S, hq, hd), this
+    rank's query heads, through ``w`` (``q_dim`` rows whole), summed over
+    the ranks: through :func:`pim_proj`, or (``pim=False``) a plain
+    ``@``, as the reference takes the MoE block's."""
+    b, s, hq, hd = o.shape
+    q0 = _tp_heads(cfg, tp)[0]
+    w = _tp_cols(w, q0 * hd, (q0 + hq) * hd, cfg.q_dim, tp, dim=-2)
+    o = o.reshape(b, s, hq * hd)
+    if not pim:
+        return dist.reduce_from_parallel(o @ w, tp.group)
+    return pim_proj(cfg, o, w, tp=tp, **kw)
+
+
 def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp, engine, dp):
     """q, k, v of this rank's heads (column-parallel projections)."""
-    b, s, _ = xn.shape
-    hd = cfg.hd
     q0, hq, k0, hk = _tp_heads(cfg, tp)
     kw = dict(scope="attn", engine=engine, dp=dp)
     xp = dist.copy_to_parallel(xn, tp.group)
-    q = pim_proj(cfg, xp, _tp_cols(p["wq"], q0 * hd, (q0 + hq) * hd,
-                                   cfg.q_dim, tp), **kw).reshape(b, s, hq, hd)
-    kv = (k0 * hd, (k0 + hk) * hd, cfg.kv_dim, tp)
-    k = pim_proj(cfg, xp, _tp_cols(p["wk"], *kv), **kw).reshape(b, s, hk, hd)
-    v = pim_proj(cfg, xp, _tp_cols(p["wv"], *kv), **kw).reshape(b, s, hk, hd)
+    q = _heads_tp(cfg, xp, p["wq"], q0, hq, cfg.q_dim, tp, **kw)
+    k = _heads_tp(cfg, xp, p["wk"], k0, hk, cfg.kv_dim, tp, **kw)
+    v = _heads_tp(cfg, xp, p["wv"], k0, hk, cfg.kv_dim, tp, **kw)
     if cfg.qk_norm:
         q = rms_norm(q, dist.copy_to_parallel(p["qn"], tp.group),
                      cfg.norm_eps)
@@ -349,23 +402,19 @@ def _prefill_cache(cache, k, v, split):
             "length": torch.tensor(s, dtype=torch.int32, device=k.device)}
 
 
-def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                     kind: str, engine=None, tp=None, dp=None):
-    """One attention block: (self-attention [+ cross-attention] + MLP).
-    Under ``tp``, self-attention and the MLP on this rank's heads and
-    columns, with this rank's shard of the KV cache (see the module
-    docstring)."""
-    b, s, d = x.shape
-    window = cfg.window if kind == "l" else None
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
+def _self_attend(cfg: ModelConfig, q, k, v, state, mode: str, tp, *,
+                 window=None, fill: bool = True):
+    """Self-attention of ``q``/``k``/``v`` (this rank's heads under
+    ``tp``) and the state it leaves: with ``state``, a prefill writes
+    the KV behind (``fill``; the reference's MoE block does not), a
+    decode step appends to this rank's shard of the cache."""
     split = None if state is None else _seq_split(cfg, tp,
                                                   state["self"]["k"])
     new_state = state
     if mode in ("full", "encode"):
         o = attend(q, k, v, causal=(mode != "encode"), window=window,
                    cap=cfg.softcap_attn)
-        if state is not None:     # prefill: leave the KV behind
+        if state is not None and fill:     # prefill: leave the KV behind
             new_state = dict(state)
             new_state["self"] = _prefill_cache(state["self"], k, v, split)
     else:
@@ -380,30 +429,60 @@ def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
                                            cap=cfg.softcap_attn)
         new_state = dict(state)
         new_state["self"] = cache._asdict()
-    attn = dict(scope="attn", engine=engine, dp=dp)
-    if tp is not None:          # row-parallel out-projection, then the sum
-        q0, hq = _tp_heads(cfg, tp)[:2]
-        wo = _tp_cols(p["wo"], q0 * cfg.hd, (q0 + hq) * cfg.hd, cfg.q_dim,
-                      tp, dim=-2)
-        x = x + pim_proj(cfg, o.reshape(b, s, hq * cfg.hd), wo, tp=tp,
-                         **attn)
-    else:
-        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], **attn)
+    return o, new_state
 
-    if cfg.family == "encdec" and enc_out is not None:
-        xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
-        f = enc_out.shape[1]
-        qx = pim_proj(cfg, xn2, p["xq"], **attn).reshape(b, s, cfg.n_heads,
-                                                         cfg.hd)
+
+def _cross_attend(cfg: ModelConfig, p, xn, enc_out, tp, attn):
+    """Enc-dec cross-attention of ``xn`` over the encoder's ``enc_out``
+    (whole on every rank; under ``tp``, ``xq``/``xk``/``xv``
+    column-parallel on this rank's heads and ``xo`` row-parallel)."""
+    b, s, _ = xn.shape
+    f = enc_out.shape[1]
+    if tp is None:
+        qx = pim_proj(cfg, xn, p["xq"], **attn).reshape(b, s, cfg.n_heads,
+                                                        cfg.hd)
         kx = pim_proj(cfg, enc_out, p["xk"], **attn).reshape(
             b, f, cfg.n_kv_heads, cfg.hd)
         vx = pim_proj(cfg, enc_out, p["xv"], **attn).reshape(
             b, f, cfg.n_kv_heads, cfg.hd)
         ox = attend(qx, kx, vx, causal=False)
-        x = x + pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"], **attn)
+        return pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"], **attn)
+    q0, hq, k0, hk = _tp_heads(cfg, tp)
+    xp = dist.copy_to_parallel(xn, tp.group)
+    ep = dist.copy_to_parallel(enc_out, tp.group)
+    qx = _heads_tp(cfg, xp, p["xq"], q0, hq, cfg.q_dim, tp, **attn)
+    kx = _heads_tp(cfg, ep, p["xk"], k0, hk, cfg.kv_dim, tp, **attn)
+    vx = _heads_tp(cfg, ep, p["xv"], k0, hk, cfg.kv_dim, tp, **attn)
+    return _out_tp(cfg, attend(qx, kx, vx, causal=False), p["xo"], tp,
+                   **attn)
+
+
+def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
+                     kind: str, d_ff: Optional[int] = None, engine=None,
+                     tp=None, dp=None):
+    """One attention block: (self-attention [+ cross-attention] + MLP).
+    ``d_ff``: the MLP's width (default ``cfg.d_ff``; a dense block
+    inside a MoE stack has its own). Under ``tp``, attention and the MLP
+    on this rank's heads and columns, with this rank's shard of the KV
+    cache (see the module docstring)."""
+    b, s, d = x.shape
+    window = cfg.window if kind == "l" else None
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
+    o, new_state = _self_attend(cfg, q, k, v, state, mode, tp, window=window)
+    attn = dict(scope="attn", engine=engine, dp=dp)
+    if tp is not None:          # row-parallel out-projection, then the sum
+        x = x + _out_tp(cfg, o, p["wo"], tp, **attn)
+    else:
+        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], **attn)
+
+    if cfg.family == "encdec" and enc_out is not None:
+        xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
+        x = x + _cross_attend(cfg, p, xn2, enc_out, tp, attn)
 
     xn3 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _apply_mlp(cfg, p["mlp"], xn3, engine=engine, tp=tp, dp=dp)
+    x = x + _apply_mlp(cfg, p["mlp"], xn3, d_ff=d_ff or cfg.d_ff,
+                       engine=engine, tp=tp, dp=dp)
     return x, new_state
 
 
@@ -428,19 +507,19 @@ MOE_CHUNK = 32768   # cap tokens per dispatch so the sorted dispatch
 
 
 def moe_ffn(cfg: ModelConfig, p, x3: torch.Tensor, *,
-            engine=None, dp=None) -> torch.Tensor:
+            engine=None, dp=None, tp=None) -> torch.Tensor:
     """Dropless top-k expert FFN over (B, S, D); long sequences are
     dispatched in chunks along S, so the sorted (T*k, D) dispatch
-    activations stay O(chunk)."""
+    activations stay O(chunk). ``tp``: see :func:`_moe_ffn_chunk`."""
     b, s, d = x3.shape
     sc = max(1, MOE_CHUNK // max(1, b))
+    kw = dict(engine=engine, dp=dp, tp=tp)
     if s > sc and s % sc == 0:
         ys = [_moe_ffn_chunk(cfg, p, x3[:, c:c + sc].reshape(b * sc, d),
-                             engine=engine, dp=dp).reshape(b, sc, d)
+                             **kw).reshape(b, sc, d)
               for c in range(0, s, sc)]
         return torch.cat(ys, dim=1)
-    return _moe_ffn_chunk(cfg, p, x3.reshape(b * s, d),
-                          engine=engine, dp=dp).reshape(b, s, d)
+    return _moe_ffn_chunk(cfg, p, x3.reshape(b * s, d), **kw).reshape(b, s, d)
 
 
 def _expert_counts(flat_e: torch.Tensor, n_experts: int):
@@ -448,9 +527,11 @@ def _expert_counts(flat_e: torch.Tensor, n_experts: int):
 
     A fake tensor (a shape-only trace, :mod:`repro_torch.launch.dryrun`)
     holds no routing to count, so the trace takes it balanced: T*k // E
-    rows an expert, the remainder one each to the first experts. Dropless
-    dispatch computes every routed pair whatever the routing, so the
-    FLOPs are those of any real routing; real tensors are counted."""
+    rows an expert, the remainder one each to the first experts, as a
+    list (under expert parallelism the caller keeps its experts' part).
+    Dropless dispatch computes every routed pair whatever the routing,
+    so the FLOPs are those of any real routing; real tensors are
+    counted."""
     if is_fake(flat_e):
         n, rest = divmod(flat_e.numel(), n_experts)
         return [n + (i < rest) for i in range(n_experts)]
@@ -458,7 +539,7 @@ def _expert_counts(flat_e: torch.Tensor, n_experts: int):
 
 
 def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
-                   engine=None, dp=None) -> torch.Tensor:
+                   engine=None, dp=None, tp=None) -> torch.Tensor:
     """Dropless dispatch: sort token-expert pairs by expert (stable), then
     grouped GEMMs over the ragged per-expert segments, then a scatter-add
     of the gated outputs back to their tokens.
@@ -467,10 +548,25 @@ def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
     output never depends on the other tokens of the dispatch and
     prefill equals token-by-token decode. The router is a plain ``@``,
     as in the reference.
+
+    Under ``tp`` with the experts split over it (expert parallelism,
+    ``we*`` this rank's ``E / tp`` experts): every rank routes every
+    token with the whole router, keeps the stretch of the sorted pairs
+    whose experts are its own (the sort is by expert, so they are
+    contiguous), computes them, and the scatter-added outputs are summed
+    over the ranks. The shared experts are an MLP of width ``d_ff *
+    n_shared``, column- and row-parallel. Experts that the axis does not
+    split stay whole and run on every rank.
     """
     e = cfg.moe
     t, d = x2.shape
-    logits = x2 @ p["router"]
+    ep = (tp if tp is not None and p["we1"].shape[0] != e.n_experts
+          else None)
+    xe, router = x2, p["router"]
+    if ep is not None:          # replicated, used in the parallel region
+        xe = dist.copy_to_parallel(x2, ep.group)
+        router = dist.copy_to_parallel(router, ep.group)
+    logits = xe @ router
     gate, idx = torch.topk(logits, e.top_k, dim=-1)        # (T, k)
     gate = torch.softmax(gate.to(torch.float32), dim=-1).to(x2.dtype)
 
@@ -479,35 +575,44 @@ def _moe_ffn_chunk(cfg: ModelConfig, p, x2: torch.Tensor, *,
     order = torch.argsort(flat_e, stable=True)
     st, sg = flat_t[order], gate.reshape(-1)[order]
     counts = _expert_counts(flat_e, e.n_experts)
+    if ep is not None:          # this rank's experts' stretch of the pairs
+        n = p["we1"].shape[0]
+        counts = counts.tolist() if torch.is_tensor(counts) else counts
+        lo = sum(counts[:ep.index * n])
+        counts = counts[ep.index * n:(ep.index + 1) * n]
+        st, sg = st[lo:lo + sum(counts)], sg[lo:lo + sum(counts)]
 
-    xs = x2[st]                                            # (T*k, d)
-    kw = dict(engine=engine, dp=dp)
+    xs = xe[st]                                            # (T*k, d)
+    kw = dict(engine=engine, dp=dp, ep=ep)
     h = _pim_ragged(cfg, xs, p["we1"], counts, **kw)
     h3 = _pim_ragged(cfg, xs, p["we3"], counts, **kw)
     y = _pim_ragged(cfg, F.silu(h) * h3, p["we2"], counts, **kw)
     out = torch.zeros_like(x2).index_add_(0, st, y * sg[:, None])
+    if ep is not None:
+        out = dist.reduce_from_parallel(out, ep.group)
     if e.n_shared:
-        out = out + _apply_mlp(cfg, p["shared"], x2, **kw)
+        out = out + _apply_mlp(cfg, p["shared"], x2,
+                               d_ff=cfg.d_ff * e.n_shared, engine=engine,
+                               tp=tp, dp=dp)
     return out
 
 
 def apply_moe_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                    engine=None, dp=None):
-    """One MoE block: self-attention (``wo`` plain) + the expert FFN."""
+                    engine=None, tp=None, dp=None):
+    """One MoE block: self-attention (``wo`` plain; a prefill leaves no
+    KV behind, as in the reference) + the expert FFN. Under ``tp``,
+    attention on this rank's heads (``wo`` row-parallel, summed) and the
+    experts split over the ranks (:func:`_moe_ffn_chunk`)."""
     b, s, d = x.shape
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, xn, pos, engine, dp=dp)
-    new_state = state
-    if mode == "full":
-        o = attend(q, k, v, causal=True, cap=cfg.softcap_attn)
+    q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
+    o, new_state = _self_attend(cfg, q, k, v, state, mode, tp, fill=False)
+    if tp is not None:
+        x = x + _out_tp(cfg, o, p["wo"], tp, pim=False)
     else:
-        o, cache = decode_attend(q, KVCache(**state["self"]), k, v,
-                                 cap=cfg.softcap_attn)
-        new_state = dict(state)
-        new_state["self"] = cache._asdict()
-    x = x + (o.reshape(b, s, cfg.q_dim) @ p["wo"])
+        x = x + (o.reshape(b, s, cfg.q_dim) @ p["wo"])
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + moe_ffn(cfg, p, xn2, engine=engine, dp=dp), new_state
+    return x + moe_ffn(cfg, p, xn2, engine=engine, dp=dp, tp=tp), new_state
 
 
 # ============================================================== RG-LRU ====
@@ -544,27 +649,39 @@ def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
 
 
 def apply_rglru_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                      engine=None, dp=None):
-    """One RG-LRU block: gated linear recurrence + MLP."""
+                      engine=None, tp=None, dp=None):
+    """One RG-LRU block: gated linear recurrence + MLP. Under ``tp`` the
+    recurrence is channel-parallel: ``wx``/``wg``/``wa``/``wi``
+    column-parallel on this rank's channels, the conv, ``lam``, the
+    gates and the scan elementwise on them (its decode state ``h`` and
+    ``conv`` are those channels, as ``state_shardings`` places them),
+    ``wo`` row-parallel with its sum; the MLP as in every block."""
     b, s, d = x.shape
     c_exp = 8.0
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    u = xn @ p["wx"]
-    g = _gelu(xn @ p["wg"])
+    ch = _tp_range(d, tp)
+    w = {k: p[k] for k in ("wx", "wg", "wa", "wi", "conv", "lam", "wo")}
+    if ch is not None:
+        xn = dist.copy_to_parallel(xn, tp.group)
+        for k in ("wx", "wg", "wa", "wi", "conv", "lam"):
+            w[k] = _tp_cols(p[k], *ch, d, tp)
+        w["wo"] = _tp_cols(p["wo"], *ch, d, tp, dim=-2)
+    u = xn @ w["wx"]
+    g = _gelu(xn @ w["wg"])
     if mode == "full":
         conv_in = F.pad(u, (0, 0, 3, 0))
-        uc = sum(conv_in[:, i:i + s] * p["conv"][i] for i in range(4))
+        uc = sum(conv_in[:, i:i + s] * w["conv"][i] for i in range(4))
     else:
         hist = torch.cat([state["conv"], u], dim=1)         # (B, 4, D)
-        uc = torch.sum(hist * p["conv"], dim=1, keepdim=True)
-    r = torch.sigmoid(xn @ p["wa"])
-    i = torch.sigmoid(xn @ p["wi"])
-    log_a = c_exp * r * F.logsigmoid(p["lam"])               # < 0
+        uc = torch.sum(hist * w["conv"], dim=1, keepdim=True)
+    r = torch.sigmoid(xn @ w["wa"])
+    i = torch.sigmoid(xn @ w["wi"])
+    log_a = c_exp * r * F.logsigmoid(w["lam"])               # < 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2 * log_a), 1e-6)
                        ) * (i * uc)
     h0 = (state["h"] if state is not None
-          else torch.zeros((b, d), dtype=x.dtype, device=x.device))
+          else torch.zeros((b, u.shape[-1]), dtype=x.dtype, device=x.device))
     new_state = state
     if mode == "full":
         h = _rglru_scan(a, gated, h0)
@@ -575,11 +692,13 @@ def apply_rglru_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
         h = (a * h0[:, None] + gated)
         new_state = {"h": h[:, -1],
                      "conv": torch.cat([state["conv"][:, 1:], u], dim=1)}
-    y = (h * g) @ p["wo"]
+    y = (h * g) @ w["wo"]
+    if ch is not None:
+        y = dist.reduce_from_parallel(y, tp.group)
     x = x + y
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _apply_mlp(cfg, p["mlp"], xn2, engine=engine,
-                          dp=dp), new_state
+    return x + _apply_mlp(cfg, p["mlp"], xn2, d_ff=cfg.d_ff, engine=engine,
+                          tp=tp, dp=dp), new_state
 
 
 # ============================================================== RWKV-6 ====
@@ -609,63 +728,132 @@ def init_rwkv_block(cfg: ModelConfig, ini: Initializer) -> Dict[str, Any]:
     return p
 
 
-def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv):
+def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv, tp=None):
     """xn (B,S,D); xprev (B,S,D) = token-shifted xn; returns (y, last wkv).
-    The reference's ``lax.scan`` over S is a loop over S."""
+    The reference's ``lax.scan`` over S is a loop over S.
+
+    Under ``tp``, head-parallel: ``wr``/``wk``/``wv``/``wg`` column- and
+    ``wo`` row-parallel, ``w0``/``u``/``gn`` and ``state_wkv`` this
+    rank's heads' channels. The decay LoRA's inner vector is whole
+    (``wa`` split over its columns, gathered after the tanh, before
+    ``wb``'s columns of this rank), and the group-norm proxy's mean
+    square is over the whole ``d_model``, summed over the ranks."""
     b, s, d = xn.shape
     hd = cfg.rwkv_head_dim
-    nh = d // hd
-    mix = torch.sigmoid(p["mix"])
+    ch = _tp_range(d, tp)
+    w = {k: p[k] for k in ("mix", "wr", "wk", "wv", "wg", "wa", "wb", "w0",
+                           "u", "gn", "wo")}
+    lora = p["wb"].shape[0]
+    if ch is not None:
+        xn = dist.copy_to_parallel(xn, tp.group)
+        xprev = dist.copy_to_parallel(xprev, tp.group)
+        w["mix"] = dist.copy_to_parallel(p["mix"], tp.group)
+        for k in ("wr", "wk", "wv", "wg", "wb", "w0", "u", "gn"):
+            w[k] = _tp_cols(p[k], *ch, d, tp)
+        w["wo"] = _tp_cols(p["wo"], *ch, d, tp, dim=-2)
+        if p["wa"].shape[-1] == lora:    # kept whole: its gradient summed
+            w["wa"] = dist.copy_to_parallel(p["wa"], tp.group)
+    nh = w["wr"].shape[-1] // hd
+    mix = torch.sigmoid(w["mix"])
 
     def lerp(i):
         return xn * mix[i] + xprev * (1 - mix[i])
-    r = (lerp(0) @ p["wr"]).reshape(b, s, nh, hd)
-    k = (lerp(1) @ p["wk"]).reshape(b, s, nh, hd)
-    v = (lerp(2) @ p["wv"]).reshape(b, s, nh, hd)
-    wdd = p["w0"] + torch.tanh(lerp(3) @ p["wa"]) @ p["wb"]
-    w = torch.exp(-torch.exp(wdd)).reshape(b, s, nh, hd)   # in (0,1)
-    g = F.silu(lerp(4) @ p["wg"])
-    u = p["u"].reshape(nh, hd)
+    r = (lerp(0) @ w["wr"]).reshape(b, s, nh, hd)
+    k = (lerp(1) @ w["wk"]).reshape(b, s, nh, hd)
+    v = (lerp(2) @ w["wv"]).reshape(b, s, nh, hd)
+    inner = torch.tanh(lerp(3) @ w["wa"])
+    if inner.shape[-1] != lora:      # this rank's LoRA columns: gather
+        inner = dist.gather_from_parallel(inner, tp.group, -1)
+    wdd = w["w0"] + inner @ w["wb"]
+    dec = torch.exp(-torch.exp(wdd)).reshape(b, s, nh, hd)   # in (0,1)
+    g = F.silu(lerp(4) @ w["wg"])
+    u = w["u"].reshape(nh, hd)
 
     S = state_wkv
     ys = []
     for t in range(s):
-        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], dec[:, t]
         kv = torch.einsum("bhi,bhj->bhij", k_t, v_t)
         ys.append(torch.einsum("bhi,bhij->bhj", r_t,
                                S + u[None, :, :, None] * kv))
         S = w_t[..., None] * S + kv
-    y = torch.stack(ys, dim=1).reshape(b, s, d)
-    y = rms_norm(y, p["gn"], cfg.norm_eps)                # group-norm proxy
-    return (y * g) @ p["wo"], S
+    y = torch.stack(ys, dim=1).reshape(b, s, nh * hd)
+    if ch is None:
+        y = rms_norm(y, w["gn"], cfg.norm_eps)            # group-norm proxy
+        return (y * g) @ w["wo"], S
+    # the proxy over the whole d_model: its mean square summed over ranks
+    sq = dist.sum_in_parallel(torch.sum(torch.square(y.to(torch.float32)),
+                                        dim=-1, keepdim=True), tp.group)
+    y = (y * torch.rsqrt(sq / d + cfg.norm_eps)).to(y.dtype) * (1.0 + w["gn"])
+    return dist.reduce_from_parallel((y * g) @ w["wo"], tp.group), S
+
+
+def _rwkv_channel_mix(cfg, p, xn2, xprev2, tp=None):
+    """``sigmoid(xr @ cr) * (relu(xk @ ck)^2 @ cv)`` of the lerps of
+    ``xn2`` and its token shift ``xprev2``. Under ``tp``: ``ck``
+    column- and ``cv`` row-parallel with its sum, ``cr``
+    column-parallel, its gate gathered whole to meet the whole sum."""
+    d = xn2.shape[-1]
+    ch = _tp_range(d, tp)
+    w = {k: p[k] for k in ("cmix", "ck", "cv", "cr")}
+    if ch is not None:
+        xn2 = dist.copy_to_parallel(xn2, tp.group)
+        xprev2 = dist.copy_to_parallel(xprev2, tp.group)
+        w["cmix"] = dist.copy_to_parallel(p["cmix"], tp.group)
+        f = cfg.d_ff       # an uneven share of a d_ff that does not split
+        lo, hi = tp.index * f // tp.size, (tp.index + 1) * f // tp.size
+        w["ck"] = _tp_cols(p["ck"], lo, hi, f, tp)
+        w["cv"] = _tp_cols(p["cv"], lo, hi, f, tp, dim=-2)
+        w["cr"] = _tp_cols(p["cr"], *ch, d, tp)
+    cmix = torch.sigmoid(w["cmix"])
+    xk = xn2 * cmix[0] + xprev2 * (1 - cmix[0])
+    xr = xn2 * cmix[1] + xprev2 * (1 - cmix[1])
+    kk = torch.square(torch.relu(xk @ w["ck"]))
+    gate = torch.sigmoid(xr @ w["cr"])
+    if ch is None:
+        return gate * (kk @ w["cv"])
+    return (dist.gather_out_of_parallel(gate, tp.group, -1)
+            * dist.reduce_from_parallel(kk @ w["cv"], tp.group))
 
 
 def apply_rwkv_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
-                     engine=None, dp=None):
+                     engine=None, tp=None, dp=None):
     """One RWKV-6 block: time mix + channel mix, with token shift (its
     projections are plain ``@``: no PIM scope reaches them, so ``dp`` is
-    not read)."""
+    not read). Under ``tp`` (head-parallel, see :func:`_rwkv_time_mix`
+    and :func:`_rwkv_channel_mix`) the decode state is this rank's
+    shard: ``wkv`` its heads, ``tshift``/``cshift`` its channels, which
+    are gathered whole for the lerps and stored back as this rank's
+    channels of the new ones."""
     b, s, d = x.shape
-    if state is None:
-        state = init_state(cfg, "r", b, 0, x.dtype, device=x.device)
+    ch = _tp_range(d, tp)
+    if state is None:            # zero states; the wkv of this rank's heads
+        hd = cfg.rwkv_head_dim
+        nh = (d if ch is None else ch[1] - ch[0]) // hd
+        zero = x.new_zeros((b, d))
+        state = {"wkv": x.new_zeros((b, nh, hd, hd)), "tshift": zero,
+                 "cshift": zero}
+    shift = {k: state[k] for k in ("tshift", "cshift")}
+    for k, v in shift.items():
+        if v.shape[-1] != d:
+            shift[k] = dist.all_gather(v, tp.group, dim=-1)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "full":
-        xprev = torch.cat([state["tshift"][:, None], xn[:, :-1]], dim=1)
+        xprev = torch.cat([shift["tshift"][:, None], xn[:, :-1]], dim=1)
     else:
-        xprev = state["tshift"][:, None]
-    y, S_last = _rwkv_time_mix(cfg, p, xn, xprev, state["wkv"])
+        xprev = shift["tshift"][:, None]
+    y, S_last = _rwkv_time_mix(cfg, p, xn, xprev, state["wkv"], tp)
     x = x + y
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if mode == "full":
-        xprev2 = torch.cat([state["cshift"][:, None], xn2[:, :-1]], dim=1)
+        xprev2 = torch.cat([shift["cshift"][:, None], xn2[:, :-1]], dim=1)
     else:
-        xprev2 = state["cshift"][:, None]
-    cmix = torch.sigmoid(p["cmix"])
-    xk = xn2 * cmix[0] + xprev2 * (1 - cmix[0])
-    xr = xn2 * cmix[1] + xprev2 * (1 - cmix[1])
-    kk = torch.square(torch.relu(xk @ p["ck"]))
-    y2 = torch.sigmoid(xr @ p["cr"]) * (kk @ p["cv"])
+        xprev2 = shift["cshift"][:, None]
+    y2 = _rwkv_channel_mix(cfg, p, xn2, xprev2, tp)
     new_state = {"wkv": S_last, "tshift": xn[:, -1], "cshift": xn2[:, -1]}
+    for k in ("tshift", "cshift"):
+        if state[k].shape[-1] != d:
+            new_state[k] = new_state[k][..., ch[0]:ch[1]]
     return x + y2, new_state
 
 
@@ -688,17 +876,15 @@ def init_block(cfg: ModelConfig, ini: Initializer, kind: str):
 def apply_block(cfg: ModelConfig, kind: str, p, x, *, pos, state=None,
                 enc_out=None, mode="full", engine=None, tp=None, dp=None):
     """Apply one block of layer kind ``kind``; returns (y, new_state).
-    ``tp`` (:func:`tensor_parallel`) only for attention blocks; ``dp``
-    (:func:`data_parallel`) for every kind."""
+    ``tp`` (:func:`tensor_parallel`) and ``dp`` (:func:`data_parallel`)
+    for every kind."""
     kw = dict(pos=pos, state=state, enc_out=enc_out, mode=mode,
-              engine=engine, dp=dp)
+              engine=engine, tp=tp, dp=dp)
     if kind in ("g", "l"):
-        return apply_attn_block(cfg, p, x, kind=kind, tp=tp, **kw)
-    if tp is not None:
-        raise NotImplementedError(f"block kind {kind!r} under a model axis "
-                                  f"of {tp.size}: {TP_TODO}")
+        return apply_attn_block(cfg, p, x, kind=kind, **kw)
     if kind == "d":
-        return apply_attn_block(cfg, p, x, kind="g", **kw)
+        return apply_attn_block(cfg, p, x, kind="g",
+                                d_ff=cfg.moe.d_ff_dense or cfg.d_ff, **kw)
     if kind == "m":
         return apply_moe_block(cfg, p, x, **kw)
     if kind == "r":

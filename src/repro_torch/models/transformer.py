@@ -16,17 +16,19 @@ Given a mesh of ranks (``mesh=``), :func:`forward` and
 :func:`decode_step` take this rank's place on it once
 (:func:`repro_torch.models.blocks.tensor_parallel` on the ``model``
 axis, :func:`repro_torch.models.blocks.data_parallel` on the data axes)
-and hand it to every block. The tokens, positions, frames and decode
-states are this rank's rows (and, over ``model``, its shards of the
-caches, as ``state_shardings`` places them: :func:`init_decode_state`
-makes them). Over ``model`` the embedding is vocab-parallel (a masked
-lookup of this rank's rows, then the sum over ranks), the blocks compute
-their shard, and the logits stay sharded over the vocabulary (for the
-loss's vocab-parallel cross entropy, and the greedy token's argmax over
-the shards, :func:`repro_torch.train.step.greedy_token`). A leaf that the
-rules keep whole (a vocabulary that does not split) is used whole. The
-PIM projections take their scales over the ranks that split their
-operands (:func:`repro_torch.models.blocks.pim_proj`).
+and hand it to every block, the encoder's too. The tokens, positions,
+frames and decode states are this rank's rows (and, over ``model``, its
+shards of the caches, as ``state_shardings`` places them:
+:func:`init_decode_state` makes them). Over ``model`` the embedding is
+vocab-parallel (a masked lookup of this rank's rows, then the sum over
+ranks), the VLM's ``patch_proj`` is column-parallel with its patches
+gathered whole, the blocks compute their shard, and the logits stay
+sharded over the vocabulary (for the loss's vocab-parallel cross
+entropy, and the greedy token's argmax over the shards,
+:func:`repro_torch.train.step.greedy_token`). A leaf that the rules keep
+whole (a vocabulary that does not split) is used whole. The PIM
+projections take their scales over the ranks that split their operands
+(:func:`repro_torch.models.blocks.pim_proj`).
 """
 from __future__ import annotations
 
@@ -183,16 +185,20 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, *,
            engine=None, mesh=None) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend): non-causal self-attention blocks. With a ``mesh``,
-    ``frames`` are this rank's rows over the data axes."""
+    ``frames`` are this rank's rows over the data axes, and over a
+    ``model`` axis the blocks compute their shard, as the decoder's do
+    (their leaves are placed by the same rules); the output is whole on
+    every rank of it."""
     enc = params["encoder"]
     x = frames + enc["pos"][None, : frames.shape[1]]
     s = x.shape[1]
     pos = torch.arange(s, device=x.device)[None].expand(x.shape[0], s)
     dec_cfg = cfg.scaled(family="decoder")
+    tp = tensor_parallel(cfg, mesh)
     dp = data_parallel(mesh)
     for i in range(cfg.enc_layers):
         x, _ = apply_block(dec_cfg, "g", _at(enc["blocks"], i), x, pos=pos,
-                           mode="encode", engine=engine,
+                           mode="encode", engine=engine, tp=tp,
                            dp=dp)  # non-causal
     return rms_norm(x, enc["norm"], cfg.norm_eps)
 
@@ -230,6 +236,17 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
     mine = (ids >= 0) & (ids < n)
     local = torch.where(mine[..., None], emb[ids.clamp(0, n - 1)], 0.0)
     return dist.reduce_from_parallel(local, tp.group) * scale
+
+
+def _patches(cfg: ModelConfig, params, extra_embed: torch.Tensor, tp=None):
+    """The VLM's patch embeddings through ``patch_proj``: under ``tp``
+    (its columns split) a column-parallel product gathered whole, so the
+    prepended patches are (B, P, D) on every rank."""
+    proj = params["patch_proj"]
+    if tp is None or proj.shape[-1] == cfg.d_model:
+        return extra_embed @ proj
+    part = dist.copy_to_parallel(extra_embed, tp.group) @ proj
+    return dist.gather_out_of_parallel(part, tp.group, -1)
 
 
 def _head(cfg: ModelConfig, params, x, engine, tp=None, dp=None):
@@ -304,7 +321,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, tp)
     if extra_embed is not None:
-        x = torch.cat([extra_embed @ params["patch_proj"], x], dim=1)
+        x = torch.cat([_patches(cfg, params, extra_embed, tp), x], dim=1)
         s = x.shape[1]
     if positions is None:
         pos = torch.arange(s, device=x.device)[None].expand(b, s)

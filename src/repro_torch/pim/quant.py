@@ -38,8 +38,12 @@ class QTensor(NamedTuple):
 
 def amax_of(x: torch.Tensor, axis=None) -> torch.Tensor:
     """``|x|``'s maximum: over the whole tensor, or along ``axis`` (kept
-    as a dimension of 1), as :func:`quantize` scales by it."""
+    as a dimension of 1), as :func:`quantize` scales by it. An empty
+    tensor's whole maximum is 0 (a rank that holds no rows of a split
+    tensor adds nothing to the maximum over the ranks)."""
     if axis is None:
+        if x.numel() == 0:
+            return x.new_zeros(())
         return x.abs().amax()
     return x.abs().amax(dim=axis, keepdim=True)
 

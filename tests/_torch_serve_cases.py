@@ -10,7 +10,9 @@ logits (gathered over the vocabulary and the rows) and the caches
 rank's placed parameter and decode-state bytes. :func:`piece_cases`
 holds the pieces: the argmax over vocabulary shards, the
 sequence-sharded attention combine, the PIM scales and row-parallel
-product on shards, and the shard-by-shard init.
+product on shards, the shard-by-shard init, the expert-parallel PIM
+dispatch's scales and rows, and a windowed ring split over the
+sequence.
 """
 from __future__ import annotations
 
@@ -247,6 +249,91 @@ def quant_piece(mesh):
     return scales, bool(torch.equal(got, want)), _max_rel(fl, (x @ w)[rows])
 
 
+def ragged_piece(mesh):
+    """Expert parallelism on (2, 2): 16 tokens (their rows over
+    ``data``), each routed to 2 of 4 experts (the experts over
+    ``model``), through ``Engine.ragged_linear`` in ``pim`` mode with
+    ``x_group``/``k_group``, against one rank's dispatch of every pair:
+    each rank's rows equal one rank's rows of the same (token, expert)
+    pairs bit for bit, its scales are the whole stack's and every routed
+    row's. Once more with every pair routed to the first model rank's
+    experts, so the other holds no row. Returns ``[(scales equal, rows
+    equal, rows), ...]``."""
+    from repro_torch.pim.quant import amax_of
+    eng = Engine("torch:device=cpu")
+    g = torch.Generator().manual_seed(10)
+    t, k, e, d, f = 16, 2, 4, 24, 8
+    x = torch.randn((t, d), generator=g)
+    we = torch.randn((e, d, f), generator=g) * 0.1
+    data = mesh.comm.axis(("data",))
+    model = mesh.comm.axis(("model",))
+    rows, n = t // data.size, e // model.size
+    out = []
+    for idx in (torch.stack([torch.randperm(e, generator=g)[:k]
+                             for _ in range(t)]),
+                torch.randint(0, n, (t, k), generator=g)):
+        flat_e = idx.reshape(-1)
+        flat_t = torch.arange(t).repeat_interleave(k)
+        order = torch.argsort(flat_e, stable=True)
+        counts = torch.bincount(flat_e, minlength=e)
+        want = eng.ragged_linear(x[flat_t[order]], we, counts, n_bits=8,
+                                 mode="pim")
+        st, se = flat_t[order], flat_e[order]
+        keep = ((st // rows == data.index) & (se // n == model.index))
+        mine = torch.bincount(se[keep] - model.index * n, minlength=n)
+        xs = x[st[keep]]
+        ws = we[model.index * n:(model.index + 1) * n]
+        got = eng.ragged_linear(xs, ws, mine, n_bits=8, mode="pim",
+                                x_group=data.group, k_group=model.group)
+        both = mesh.comm.axis(("data", "model")).group
+        xa = dist.max_from_parallel(amax_of(xs), both)
+        wa = dist.max_from_parallel(amax_of(ws), model.group)
+        scales = bool(torch.equal(xa, amax_of(x[flat_t]))
+                      and torch.equal(wa, amax_of(we)))
+        out.append((scales, bool(torch.equal(got, want[keep])),
+                    int(keep.sum())))
+    return out
+
+
+def ring_piece(mesh, window: int = 12, prompt: int = 16, steps: int = 6):
+    """recurrentgemma-9b smoke with a window of 12 under a cache of 32:
+    its local-attention layer keeps a ring of 12 slots, which its single
+    KV head leaves to split over the sequence, 12 / tp slots a rank. A
+    prompt of 16 (past the window: the prefill rotates its last 12
+    tokens into the ring) and 6 greedy steps (the ring wraps) on this
+    mesh against one rank. Returns (tokens equal, worst logit error, the
+    worst error of the gathered caches)."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                              window=window)
+    model = build_model(cfg, engine=Engine("torch:device=cpu"))
+    whole = model.init(0)
+    params = shard_tree(mesh, whole, param_shardings(mesh, whole))
+    rng = np.random.default_rng(3)
+    prompts = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, prompt)))
+    specs = state_shardings(mesh, model.init_decode_state(2, CACHE))
+    runs = []
+    for p, m in ((whole, None), (params, mesh)):
+        states = model.init_decode_state(2, CACHE, mesh=m)
+        with torch.no_grad():
+            logits, states = model.forward(p, prompts, states=states, mesh=m)
+            toks, seen = [greedy_token(cfg, logits, m)], [logits[:, -1]]
+            for i in range(steps):
+                pos = torch.full((2, 1), prompt + i, dtype=torch.int32)
+                logits, states = model.decode_step(p, toks[-1], pos, states,
+                                                   mesh=m)
+                toks.append(greedy_token(cfg, logits, m))
+                seen.append(logits[:, -1])
+        if m is not None:
+            seen = [dist.all_gather(x, m.comm.axis(("model",)).group, dim=-1)
+                    for x in seen]
+            states = gather_tree(m, states, {k: specs[k] for k in states})
+        runs.append((torch.cat(toks, dim=1), seen, tree_leaves(states)))
+    (tw, lw, cw), (tg, lg, cg) = runs
+    return (bool(torch.equal(tg, tw)),
+            max(_max_rel(a, b) for a, b in zip(lg, lw)),
+            max(_max_rel(a, b) for a, b in zip(cg, cw)))
+
+
 def init_piece(mesh, archs):
     """For each arch, whether ``model.init(0, mesh=mesh)`` equals
     ``shard_leaf`` of the whole ``model.init(0)``, leaf for leaf."""
@@ -270,7 +357,8 @@ def piece_cases(rank: int, archs):
     m14 = mesh_over_ranks((1, 4), AXES)
     m22 = mesh_over_ranks((2, 2), AXES)
     return {"argmax": argmax_piece(m14), "combine": combine_piece(m14),
-            "quant": quant_piece(m22), "init": init_piece(m22, archs)}
+            "quant": quant_piece(m22), "init": init_piece(m22, archs),
+            "ragged": ragged_piece(m22), "ring": ring_piece(m14)}
 
 
 def all_cases(rank: int, cases, init_dir: str, placement, init_archs):

@@ -13,6 +13,7 @@ metrics and gathered parameters.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 
@@ -309,25 +310,172 @@ def checkpoint_cases(rank: int, root: str, ref_dir: str):
     return out
 
 
+ARCHS = ("deepseek-7b", "qwen3-8b", "gemma2-9b", "granite-20b",
+         "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "pixtral-12b",
+         "recurrentgemma-9b", "rwkv6-7b", "whisper-small")
+
+
 def refusal_cases(rank: int):
-    """What sharding raises for: tensor parallelism (1, 2) on the block
-    kinds not ported. ``{case: "Type: message"}`` on ranks 0-1."""
+    """What tensor parallelism still raises for: every architecture's
+    smoke config on a model axis of 3 over ranks 0-2 (4 query heads, and
+    RWKV's 4 heads of 16, do not split 3 ways), and qwen3-8b with 6
+    query heads over 2 KV heads on it (2 query heads a rank do not align
+    with groups of 3). ``{case: "Type: message"}`` on ranks 0-2."""
     cpu = Engine("torch:device=cpu")
-    tp = mesh_over_ranks((1, 2), AXES, [0, 1])
-    if tp.comm is None:
+    mesh = mesh_over_ranks((1, 3), AXES, [0, 1, 2])
+    if mesh.comm is None:
         return None
+    runs = [(a, get_config(a, smoke=True)) for a in ARCHS]
+    runs.append(("qwen3-8b-6x2", get_config("qwen3-8b", smoke=True).scaled(
+        n_heads=6, n_kv_heads=2)))
     out = {}
-    runs = [(a, tp, get_config(a, smoke=True))
-            for a in ("deepseek-moe-16b", "recurrentgemma-9b", "rwkv6-7b",
-                      "pixtral-12b", "whisper-small")]
-    for name, mesh, cfg in runs:
+    for name, cfg in runs:
         model = build_model(cfg, engine=cpu)
-        batch = stream(cfg)(0)
         try:
-            model.loss(model.init(0), batch, mesh)
+            model.loss(model.init(0), stream(cfg)(0), mesh)
             out[name] = "ran"
         except Exception as e:   # noqa: BLE001 -- reported to the test
             out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def _grads(fn, inputs: list, leaves: list, seed: int):
+    """``fn(*inputs)`` and the gradients of its dot with a seeded
+    cotangent with respect to ``inputs + leaves``."""
+    for x in inputs + leaves:
+        x.requires_grad_()
+    y = fn(*inputs)
+    cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed))
+    grads = torch.autograd.grad((y * cot).sum(), inputs + leaves)
+    return y.detach(), [g.detach() for g in grads]
+
+
+def _whole_block(cfg, kind: str, seed: int):
+    """One block's whole parameters of ``kind``, drawn from ``seed``."""
+    from repro_torch.models.blocks import init_block
+    from repro_torch.models.layers import Initializer
+    return init_block(cfg, Initializer(torch.Generator().manual_seed(seed)),
+                      kind)
+
+
+def _placed(mesh, tree):
+    """This rank's shards of the whole block ``tree`` by the rules, each
+    a fresh leaf."""
+    from repro_torch.train.sharding import param_shardings, shard_tree
+    from repro_torch.tree import tree_map
+    return shard_tree(mesh, tree_map(lambda v: v.detach().clone(), tree),
+                      param_shardings(mesh, tree))
+
+
+def _leaf_errs(mesh, got: list, want: list, tree) -> float:
+    """The worst relative error of the gradients ``got`` (this rank's
+    shards of ``tree``'s leaves), gathered, against the whole ``want``."""
+    from repro_torch.train.sharding import param_shardings
+    specs = spec_leaves(param_shardings(mesh, tree), len(want))
+    return max(rel(gather_leaf(mesh, a, sp), b)
+               for a, b, sp in zip(got, want, specs))
+
+
+def _piece(mesh, fn, whole, inputs, seed):
+    """``fn(params, *inputs, tp)`` on this rank's shards of ``whole``
+    against ``fn(whole, *inputs, None)``: the worst relative errors of
+    the output, the inputs' gradients and the leaves' (gathered) under a
+    seeded cotangent."""
+    tp = mesh.comm.axis(("model",))
+    mine = _placed(mesh, whole)
+    n = len(inputs)
+    want, wg = _grads(lambda *a: fn(whole, *a, None),
+                      [x.clone() for x in inputs], tree_leaves(whole), seed)
+    got, gg = _grads(lambda *a: fn(mine, *a, tp),
+                     [x.clone() for x in inputs], tree_leaves(mine), seed)
+    return {"out": rel(got, want),
+            "inputs": max(rel(a, b) for a, b in zip(gg[:n], wg[:n])),
+            "leaves": _leaf_errs(mesh, gg[n:], wg[n:], whole)}
+
+
+def rwkv_norm_piece(mesh, seed: int = 21):
+    """RWKV-6's time mix (:func:`_rwkv_time_mix`) on this rank's heads
+    against one rank (:func:`_piece`; its wkv state gathered into the
+    output). The value projection of the first rank's heads is scaled by
+    10 and the norm's scale ramps over the channels, so a group-norm
+    proxy over one rank's channels alone would be far off the whole
+    ``d_model``'s."""
+    from repro_torch.models.blocks import _rwkv_time_mix
+    cfg = get_config("rwkv6-7b", smoke=True)
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    tp = mesh.comm.axis(("model",))
+    keys = ("mix", "wr", "wk", "wv", "wg", "wa", "wb", "w0", "u", "gn", "wo")
+    whole = {k: v for k, v in _whole_block(cfg, "r", seed).items()
+             if k in keys}
+    whole["wv"][:, :d // tp.size] *= 10.0
+    whole["gn"] += torch.linspace(-0.5, 0.5, d)
+    g = torch.Generator().manual_seed(seed + 1)
+    nh = d // hd
+    inputs = [torch.randn((2, 5, d), generator=g),
+              torch.randn((2, 5, d), generator=g),
+              torch.randn((2, nh, hd, hd), generator=g) * 0.1]
+
+    def fn(p, xn, xprev, wkv, tp):
+        if tp is not None:           # this rank's heads of the state
+            n = nh // tp.size
+            wkv = dist.copy_to_parallel(wkv, tp.group)[
+                :, tp.index * n:(tp.index + 1) * n]
+        y, last = _rwkv_time_mix(cfg, p, xn, xprev, wkv, tp)
+        if tp is not None:
+            last = dist.gather_out_of_parallel(last, tp.group, 1)
+        return torch.cat([y.flatten(), last.flatten()])
+    return _piece(mesh, fn, whole, inputs, seed)
+
+
+def channel_gate_piece(mesh, seed: int = 23):
+    """RWKV-6's channel mix (:func:`_rwkv_channel_mix`: ``cr``'s gate of
+    this rank's channels gathered whole to meet ``cv``'s summed product)
+    against one rank (:func:`_piece`)."""
+    from repro_torch.models.blocks import _rwkv_channel_mix
+    cfg = get_config("rwkv6-7b", smoke=True)
+    whole = {k: v for k, v in _whole_block(cfg, "r", seed).items()
+             if k in ("cmix", "ck", "cv", "cr")}
+    g = torch.Generator().manual_seed(seed + 1)
+    inputs = [torch.randn((2, 5, cfg.d_model), generator=g)
+              for _ in range(2)]
+    return _piece(mesh, lambda p, x, xprev, tp: _rwkv_channel_mix(
+        cfg, p, x, xprev, tp), whole, inputs, seed)
+
+
+def mlp_width_piece(mesh, seed: int = 25):
+    """deepseek-moe-16b smoke with two shared experts (an MLP of 256
+    columns) and its dense block ``d`` (``d_ff_dense`` 64), neither of
+    ``d_ff`` 128's width: the shared MLP and the ``d`` block
+    (``apply_block``) on this rank's columns against one rank
+    (:func:`_piece`)."""
+    from repro_torch.models.blocks import _apply_mlp, apply_block
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, n_shared=2))
+    g = torch.Generator().manual_seed(seed)
+    inputs = [torch.randn((2, 5, cfg.d_model), generator=g)]
+    pos = torch.arange(5)[None].expand(2, 5)
+    width = cfg.d_ff * cfg.moe.n_shared
+    return {
+        "shared": _piece(mesh, lambda p, x, tp: _apply_mlp(
+            cfg, p, x, d_ff=width, tp=tp),
+            _whole_block(cfg, "m", seed)["shared"], inputs, seed),
+        "d": _piece(mesh, lambda p, x, tp: apply_block(
+            cfg, "d", p, x, pos=pos, tp=tp)[0],
+            _whole_block(cfg, "d", seed + 1), inputs, seed)}
+
+
+def tp_pieces(rank: int):
+    """The new tensor-parallel pieces on (1, 2) over ranks 0-1 and (1, 4)
+    over all four: ``{(model axis, piece): errors}``."""
+    out = {}
+    for shape, ranks in (((1, 2), [0, 1]), ((1, 4), [0, 1, 2, 3])):
+        mesh = mesh_over_ranks(shape, AXES, ranks)
+        if mesh.comm is None:
+            continue
+        out[shape[1], "rwkv_norm"] = rwkv_norm_piece(mesh)
+        out[shape[1], "channel_gate"] = channel_gate_piece(mesh)
+        for name, errs in mlp_width_piece(mesh).items():
+            out[shape[1], "mlp_width_" + name] = errs
     return out
 
 
@@ -426,6 +574,7 @@ def misc_cases(rank: int, stacked, root: str, ref_dir: str):
             "compress": compress_case(rank),
             "ckpt": checkpoint_cases(rank, root, ref_dir),
             "refusals": refusal_cases(rank),
+            "tp_pieces": tp_pieces(rank),
             "pim_train": pim_train_case(rank),
             "runner": runner_case(rank, os.path.join(root, "runner"))}
 

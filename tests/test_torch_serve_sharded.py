@@ -13,19 +13,28 @@ rank's first token.
 * Tensor parallel on (1, 2): gemma2-9b, qwen3-8b and deepseek-7b (their
   caches split over KV heads) and granite-20b (one KV head: its caches
   split over the sequence), with PIM off and with every projection on
-  the PIM path at 8 bits.
+  the PIM path at 8 bits; deepseek-moe-16b (experts over the model
+  axis), also with PIM, phi3.5-moe, recurrentgemma-9b (RG-LRU states
+  over channels, its local layer's single KV head over the sequence),
+  rwkv6-7b (wkv over heads, token shifts over channels), pixtral-12b and
+  whisper-small (its encoder split too, ``enc_out`` whole).
 * Data parallel on (2, 1): all ten architectures with PIM off,
   gemma2-9b, deepseek-moe-16b (the ragged expert path) and rwkv6-7b
   with PIM, and qwen3-8b at batch 3, which the data axis does not split.
-* (2, 2) on four ranks: gemma2-9b and granite-20b with PIM.
+* (2, 2) on four ranks: gemma2-9b, granite-20b and deepseek-moe-16b
+  with PIM.
 * Against the reference's sharded serving (its ``make_serve_step(model,
   mesh)`` ``jit_for`` on forced host devices, in a subprocess, after its
   launcher's unsharded prefill): gemma2-9b on (1, 2) and (2, 2) with
-  PIM, granite-20b on (1, 2) and rwkv6-7b on (2, 1).
+  PIM, granite-20b on (1, 2), rwkv6-7b on (2, 1), and deepseek-moe-16b
+  with PIM, recurrentgemma-9b and rwkv6-7b on (1, 2).
 * Pieces: the argmax over vocabulary shards with planted ties, the
   sequence-split attention combine against ``decode_attend`` on the whole
   cache, the PIM scales and the row-parallel integer product on shards,
-  the shard-by-shard init against ``shard_leaf`` of the whole init.
+  the shard-by-shard init against ``shard_leaf`` of the whole init,
+  the expert-parallel PIM dispatch (``ragged_linear`` with ``k_group``)
+  against one rank bit for bit, and a windowed ring split over the
+  sequence (recurrentgemma-9b, window 12 under a cache of 32).
 * Bytes: each rank's parameters and decode states equal the dry-run's
   count for its mesh, batch and cache length.
 * The launcher on two ranks under ``torch.distributed.run``.
@@ -73,18 +82,26 @@ pytestmark = pytest.mark.infra
 DENSE = ["gemma2-9b", "qwen3-8b", "deepseek-7b", "granite-20b"]
 ALL = DENSE + ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "pixtral-12b",
                "recurrentgemma-9b", "rwkv6-7b", "whisper-small"]
-TP_CASES = [(a, (1, 2), pim, 4) for a in DENSE for pim in (False, True)]
+FAMILIES = ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
+            "rwkv6-7b", "pixtral-12b", "whisper-small"]
+TP_CASES = ([(a, (1, 2), pim, 4) for a in DENSE for pim in (False, True)]
+            + [(a, (1, 2), False, 4) for a in FAMILIES]
+            + [("deepseek-moe-16b", (1, 2), True, 4)])
 DP_CASES = ([(a, (2, 1), False, 4) for a in ALL]
             + [(a, (2, 1), True, 4) for a in ("gemma2-9b",
                                                 "deepseek-moe-16b",
                                                 "rwkv6-7b")]
             + [("qwen3-8b", (2, 1), False, 3)])
-FOUR_CASES = [(a, (2, 2), True, 4) for a in ("gemma2-9b", "granite-20b")]
+FOUR_CASES = [(a, (2, 2), True, 4) for a in ("gemma2-9b", "granite-20b",
+                                               "deepseek-moe-16b")]
 CASES = TP_CASES + DP_CASES + FOUR_CASES
 # (1, 2) on ranks 0-1 while (2, 1) runs on ranks 2-3, then (2, 2).
 PLACEMENT = [((1, 2), [0, 1]), ((2, 1), [2, 3]), ((2, 2), [0, 1, 2, 3])]
 REF_CASES = [("gemma2-9b", (1, 2), True), ("gemma2-9b", (2, 2), True),
-             ("granite-20b", (1, 2), False), ("rwkv6-7b", (2, 1), False)]
+             ("granite-20b", (1, 2), False), ("rwkv6-7b", (2, 1), False),
+             ("deepseek-moe-16b", (1, 2), True),
+             ("recurrentgemma-9b", (1, 2), False),
+             ("rwkv6-7b", (1, 2), False)]
 FLOAT_TOL = 1e-5
 PIM_TOL = 1e-3
 REF_CACHE_TOL = 1e-4
@@ -206,8 +223,10 @@ def _check(case, got):
                          ids=[_ids(c) for c in TP_CASES])
 def test_tensor_parallel_serving_matches_one_rank(results, i):
     """(1, 2): the dense decoders' caches split over KV heads, granite's
-    over the sequence; tokens, logits and caches after prefill and every
-    step against one rank."""
+    and recurrentgemma's local layer's over the sequence, the MoE
+    experts over the model axis, the recurrent states over heads or
+    channels; tokens, logits and caches after prefill and every step
+    against one rank."""
     _check(TP_CASES[i], _per_rank(results, i))
 
 
@@ -223,7 +242,8 @@ def test_data_parallel_serving_matches_one_rank(results, i):
 @pytest.mark.parametrize("i", range(len(FOUR_CASES)),
                          ids=[_ids(c) for c in FOUR_CASES])
 def test_four_rank_serving_matches_one_rank(results, i):
-    """(2, 2) with PIM: rows over data, heads or slots over model."""
+    """(2, 2) with PIM: rows over data, heads, slots or experts over
+    model."""
     j = len(TP_CASES) + len(DP_CASES) + i
     _check(FOUR_CASES[i], _per_rank(results, j))
 
@@ -293,6 +313,31 @@ def test_pim_scales_and_row_parallel_product_on_shards(results):
     for r in results:
         scales, exact, float_err = r["pieces"]["quant"]
         assert scales and exact and float_err <= FLOAT_TOL
+
+
+def test_expert_parallel_pim_dispatch_matches_one_rank(results):
+    """On (2, 2), tokens over ``data`` and experts over ``model``:
+    ``ragged_linear`` in ``pim`` mode with ``x_group``/``k_group`` takes
+    the whole stack's and every routed row's scales, and each rank's
+    rows equal one rank's rows of the same pairs bit for bit; also when
+    every pair is routed to one model rank's experts and the other holds
+    no row."""
+    for r in results:
+        runs = r["pieces"]["ragged"]
+        assert len(runs) == 2
+        for scales, exact, _ in runs:
+            assert scales and exact
+    assert any(n == 0 for r in results for _, _, n in r["pieces"]["ragged"])
+
+
+def test_windowed_ring_split_over_the_sequence(results):
+    """recurrentgemma-9b smoke with a window of 12 under a cache of 32 on
+    (1, 4): the local layer's ring of 12 slots split 3 a rank, a prompt
+    of 16 rotated into it, 6 steps wrapping it; the tokens equal one
+    rank's, the logits and gathered caches within float noise."""
+    for r in results:
+        tokens_equal, logits, caches = r["pieces"]["ring"]
+        assert tokens_equal and logits <= FLOAT_TOL and caches <= FLOAT_TOL
 
 
 def test_init_shard_by_shard_equals_sharded_whole_init(results):
