@@ -144,13 +144,17 @@ and raises on any failure. Phases, one line each:
     step's wall;
 24. ``dryrun``: ``repro_torch.launch.dryrun.lower_cell`` on both
     production meshes (16 x 16 and 2 x 16 x 16) for qwen3-8b x train_4k,
-    deepseek-moe-16b x decode_32k and rwkv6-7b x long_500k: each record's
-    per-device peak GB, FLOPs, trace seconds and whether the peak fits
-    the card's memory (``torch.cuda.get_device_properties(0)``);
+    deepseek-moe-16b x decode_32k and rwkv6-7b x long_500k, each rank
+    0's sharded step traced in a fake world of the mesh's ranks (each
+    record's rank trace and its whole-width trace in worker processes,
+    six at a time: host work): each record's per-device peak GB, its
+    temp beside the whole-width step's, FLOPs, bytes accessed,
+    collective bytes by kind, trace seconds and whether the rank's peak
+    fits the card's memory (``torch.cuda.get_device_properties(0)``);
 25. ``dryrun_check``: the two decode cells one card holds whole,
     rwkv6-7b and recurrentgemma-9b x long_500k, and a train cell it
-    holds, qwen3-8b at full width cut to 8 layers (its units traced at 2
-    and 3 and extrapolated) x 4 sequences of 1,024 tokens in 2
+    holds, qwen3-8b at full width cut to 8 layers (its units traced at
+    2, 3 and 4 and extrapolated) x 4 sequences of 1,024 tokens in 2
     microbatches, bf16 parameters and float32 AdamW state, on the card's
     own 1 x 1 mesh (``make_host_mesh()``): the record's argument bytes
     equal the bytes of what ``real_step`` builds on the card (seed 0),
@@ -159,7 +163,17 @@ and raises on any failure. Phases, one line each:
     before, and its temp bytes within 10% of the most a step after the
     warm-up allocated above what was live when it began; the step's
     milliseconds (CUDA events) against its bytes bound (the argument
-    bytes read once at 3.35 TB/s);
+    bytes read once at 3.35 TB/s); then recurrentgemma-9b x long_500k
+    and the qwen3-8b train cell on (1, 2): the record made in this
+    process (rank 0's step in a fake world, no process group live
+    here), held against ``real_step(mesh=...)`` on two gloo ranks
+    sharing the card (this script's own rank entry under ``python -m
+    torch.distributed.run``, started before phase 24 and run beside its
+    host-side traces, waited for before the 1 x 1 steps): on each rank
+    the argument bytes and the collective bytes by kind equal, peak and
+    temp within 10%; step
+    milliseconds printed as what they are: two ranks time-slicing one
+    card, every collective through gloo on the host;
 26. ``train_sharded``: the training launcher under ``python -m
     torch.distributed.run --standalone --nproc-per-node 2`` with
     ``--dist-backend gloo``, both ranks on this one card (gloo's
@@ -167,8 +181,8 @@ and raises on any failure. Phases, one line each:
     repro_torch.dist``: every collective the port calls must take CUDA
     tensors), at qwen3-8b's published width, 4 x 1,024 tokens in 2
     microbatches, float32, 3 steps, on the (data, model) meshes (1, 2)
-    (tensor parallel, 8 layers) and (2, 1) (data parallel, ZeRO-1, cut
-    to 4 layers), each against a one-rank run of the same launcher at
+    (tensor parallel) and (2, 1) (data parallel, ZeRO-1), both cut to 2
+    layers, each against a one-rank run of the same launcher at
     that depth in this process: losses, lr and grad norms within 1e-5
     relative (the CPU tests' measure), each rank's placed
     parameter and AdamW bytes equal to the dry-run's
@@ -188,8 +202,8 @@ and raises on any failure. Phases, one line each:
     full width and depth on (1, 2), traced (``_profile_pass`` launches K1
     on rank 0), against the tokens of phase 19's one-rank run; (b)
     granite-20b at full width (one KV head: its caches split over the
-    sequence) cut to 8 of 52 layers on (1, 2) and (c) gemma2-9b cut to
-    12 layers on (2, 1), each against a one-rank run of the launcher at
+    sequence) cut to 4 of 52 layers on (1, 2) and (c) gemma2-9b cut to
+    6 layers on (2, 1), each against a one-rank run of the launcher at
     that depth in this process (freed before the ranks start): tokens
     equal, 0 recompiles during decode on every rank, each rank's placed
     parameter and decode-state bytes equal to the dry-run's count for
@@ -202,12 +216,12 @@ and raises on any failure. Phases, one line each:
     parallelism came last, each against a one-rank run of the same
     launcher at that depth in this process (freed before the ranks
     start): (a) deepseek-moe-16b at full width (64 experts, top 6, 2
-    shared, vocabulary 102,400) cut to 8 of 28 layers, served with every
+    shared, vocabulary 102,400) cut to 4 of 28 layers, served with every
     projection on the PIM path (experts over the model axis, their
     scales over the whole stack), traced (``_profile_pass`` launches K1
-    on rank 0); (b) deepseek-moe-16b cut to 4 layers, trained 3 steps of
-    4 x 1,024 tokens in 2 microbatches; (c) rwkv6-7b cut to 8 layers,
-    (d) recurrentgemma-9b cut to 6 layers (two ``rrl`` units) and (e)
+    on rank 0); (b) deepseek-moe-16b cut to 2 layers, trained 3 steps of
+    4 x 1,024 tokens in 2 microbatches; (c) rwkv6-7b cut to 4 layers,
+    (d) recurrentgemma-9b cut to 3 layers (one ``rrl`` unit) and (e)
     whisper-small at full width and depth with its frames, served: tokens
     equal (or losses, lr and grad norms within 1e-5 relative), 0
     recompiles during decode on every rank, each rank's placed bytes
@@ -239,9 +253,11 @@ and the library yardstick are full float32.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -381,12 +397,21 @@ DRYRUN_CHECK_CELLS = (("rwkv6-7b", "long_500k"),
 DRYRUN_TRAIN_CHECK = ("qwen3-8b", 8, 1024, 4, 2)
 DRYRUN_RTOL = 0.10
 DRYRUN_STEPS = 4
+# The same check for a rank of (1, 2): two gloo ranks sharing the card
+# run real_step(mesh=...) through this script's rank entry, against the
+# record of rank 0 traced in a fake world in this process.
+DRYRUN_RANK_MESH = (1, 2)
+DRYRUN_RANK_CELLS = (("recurrentgemma-9b", "long_500k"),)
+# Phase 24's worker processes (two of the card's host cores stay for the
+# ranks of phase 25, which run beside it).
+DRYRUN_WORKERS = 6
 # The sharded training slice: the launcher on two ranks sharing the card
 # (gloo) at qwen3-8b's published width, against one rank, as ((data,
 # model), layers). ZeRO-1 on (2, 1) moves every gradient and parameter
 # through gloo each step (about 50 s a step at 8 layers on the shared
-# card, PERF.md section 6): it runs cut to 4 layers.
-TRAIN_SHARDED_MESHES = (((1, 2), 8), ((2, 1), 4))
+# card, PERF.md section 6): both meshes run cut to 2 layers, so that the
+# script keeps its time beside the dry-run's rank checks.
+TRAIN_SHARDED_MESHES = (((1, 2), 2), ((2, 1), 2))
 TRAIN_SHARDED_ARGS = ["--arch", "qwen3-8b", "--steps", "3", "--seq-len",
                       "1024", "--global-batch", "4", "--microbatches", "2"]
 TRAIN_SHARDED_LOSS_RTOL = 1e-5
@@ -398,29 +423,32 @@ RANKS_TIMEOUT_S = 420
 # one-rank tokens; b and c against a one-rank run at their depth, cut
 # so that the phase fits the script's time.
 SERVE_SHARDED_RUNS = (("a", "gemma2-9b", None, (1, 2)),
-                      ("b", "granite-20b", 8, (1, 2)),
-                      ("c", "gemma2-9b", 12, (2, 1)))
+                      ("b", "granite-20b", 4, (1, 2)),
+                      ("c", "gemma2-9b", 6, (2, 1)))
 SERVE_SHARDED_CACHE = 128            # the launcher's default --cache-len
 # The tensor-parallel families: the launchers on (1, 2), two ranks
 # sharing the card (gloo), each against a one-rank run at that depth in
 # this process, as (run, launcher, arch, layers (None: all), arguments).
 # Serving: batch 4, prompt 32, 8 tokens; training: 3 steps of 4 x 1,024
 # tokens in 2 microbatches (float32 parameters, gradients, accumulator
-# and AdamW moments: 20 B a parameter on one rank).
+# and AdamW moments: 20 B a parameter on one rank). Depths are cut so
+# that the script keeps its time beside the dry-run's rank checks.
 TP_FAMILY_SERVE = ["--batch", str(SERVE_BATCH), "--prompt-len",
                    str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
 TP_FAMILY_RUNS = (
-    ("a", "serve", "deepseek-moe-16b", 8,
+    ("a", "serve", "deepseek-moe-16b", 4,
      TP_FAMILY_SERVE + ["--pim", "--pim-scope", "full"]),
-    ("b", "train", "deepseek-moe-16b", 4,
+    ("b", "train", "deepseek-moe-16b", 2,
      ["--steps", "3", "--seq-len", "1024", "--global-batch", "4",
       "--microbatches", "2"]),
-    ("c", "serve", "rwkv6-7b", 8, TP_FAMILY_SERVE),
-    ("d", "serve", "recurrentgemma-9b", 6, TP_FAMILY_SERVE),
+    ("c", "serve", "rwkv6-7b", 4, TP_FAMILY_SERVE),
+    ("d", "serve", "recurrentgemma-9b", 3, TP_FAMILY_SERVE),
     ("e", "serve", "whisper-small", None, TP_FAMILY_SERVE))
 ELASTIC_ARGS = ["--arch", "deepseek-7b", "--smoke", "--model-parallel",
                 "2", "--survivors", "2", "--steps", "4", "--more", "3"]
 BUILD = Path(__file__).resolve().parent / "build"
+REFERENCE_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all", "collective-permute")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1784,47 +1812,139 @@ def train_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def dryrun_record(arch: str, shape: str, multi_pod: bool,
+                  whole: bool) -> dict:
+    """One part of a record of phase 24, in a worker process of its own:
+    rank 0's record (its own fake world), or its whole-width trace."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun
+    if whole:
+        return dryrun.whole_width_cell(arch, shape, multi_pod=multi_pod)
+    return dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
+                             full_width=False, verbose=False)
+
+
 def dryrun_phase() -> None:
     """Phase 24: the dry-run's records of DRYRUN_CELLS on both
-    production meshes, each peak against the card's memory."""
-    from repro_torch.launch.dryrun import lower_cell
+    production meshes, each rank's peak against the card's memory. The
+    records are host work (fake tensors): each record's rank trace and
+    its whole-width trace run in worker processes, DRYRUN_WORKERS at a
+    time."""
     props = torch.cuda.get_device_properties(0)
     t_phase = time.perf_counter()
     phase("dryrun", card=props.name, memory_bytes=props.total_memory)
-    for arch, shape in DRYRUN_CELLS:
-        for multi_pod in (False, True):
-            rec = lower_cell(arch, shape, multi_pod=multi_pod, verbose=False)
-            pd = rec["per_device"]
-            check(rec["status"] == "ok" and rec["flops"] > 0,
-                  f"dryrun: {arch} x {shape}: {rec}")
-            phase("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
-                  peak_gb=pd["peak_bytes"] / 1e9,
-                  argument_gb=pd["argument_bytes"] / 1e9,
-                  temp_gb=pd["temp_bytes"] / 1e9,
-                  output_gb=pd["output_bytes"] / 1e9, flops=rec["flops"],
-                  trace_s=rec["trace"]["seconds"],
-                  units=json.dumps(rec["trace"]["units"]),
-                  rows=rec["trace"]["rows"],
-                  microbatches=rec["trace"]["microbatches"],
-                  fits=pd["peak_bytes"] <= props.total_memory)
-    phase("dryrun", cells=2 * len(DRYRUN_CELLS),
+    cells = [(arch, shape, multi_pod) for arch, shape in DRYRUN_CELLS
+             for multi_pod in (False, True)]
+    jobs = [c + (whole,) for whole in (False, True) for c in cells]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(dryrun_record, *zip(*jobs)))
+    for (arch, shape, _), rec, whole in zip(cells, parts[:len(cells)],
+                                           parts[len(cells):]):
+        trace_s = rec["trace"]["seconds"] + whole.pop("seconds")
+        rec["trace"].update(whole, seconds=round(trace_s, 1))
+        pd = rec["per_device"]
+        check(rec["status"] == "ok" and rec["flops"] > 0,
+              f"dryrun: {arch} x {shape}: {rec}")
+        coll = rec["collective_bytes"]
+        check(rec["trace"]["per_rank"] and coll and set(coll) <= set(
+            REFERENCE_COLLECTIVES), f"dryrun: {arch} x {shape}: not "
+            f"a rank's record: {rec['trace']} {coll}")
+        phase("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+              peak_gb=pd["peak_bytes"] / 1e9,
+              argument_gb=pd["argument_bytes"] / 1e9,
+              temp_gb=pd["temp_bytes"] / 1e9,
+              full_width_temp_gb=rec["trace"]["full_width_temp_bytes"]
+              / 1e9,
+              output_gb=pd["output_bytes"] / 1e9, flops=rec["flops"],
+              bytes_accessed=rec["bytes_accessed"],
+              collective_bytes=json.dumps(coll),
+              per_rank=rec["trace"]["per_rank"],
+              trace_s=rec["trace"]["seconds"],
+              units=json.dumps(rec["trace"]["units"]),
+              rows=rec["trace"]["rows"],
+              microbatches=rec["trace"]["microbatches"],
+              fits=pd["peak_bytes"] <= props.total_memory)
+    phase("dryrun", cells=len(cells), workers=DRYRUN_WORKERS,
           seconds=round(time.perf_counter() - t_phase, 1))
 
 
-def dryrun_check_phase(smi: str) -> None:
-    """Phase 25: the records of DRYRUN_CHECK_CELLS and of
-    DRYRUN_TRAIN_CHECK on the 1 x 1 host mesh against real steps on the
-    card."""
+def dryrun_cells() -> list:
+    """(config, shape, microbatches) of DRYRUN_CHECK_CELLS and of
+    DRYRUN_TRAIN_CHECK."""
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
-    from repro_torch.launch.dryrun import cell_record, real_step
-    from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh()
     arch, layers, seq, batch, mb = DRYRUN_TRAIN_CHECK
     cells = [(get_config(a), next(s for s in SHAPES if s.name == name), 1)
              for a, name in DRYRUN_CHECK_CELLS]
     cells.append((get_config(arch).scaled(n_layers=layers),
                   ShapeSpec(f"train_{seq}", seq, batch, "train"), mb))
-    for cfg, shape, microbatches in cells:
+    return cells
+
+
+def dryrun_held(name: str, rec: dict, real: dict, cfg, shape) -> tuple:
+    """Hold one real step's measure against the record: argument bytes
+    equal, peak and temp within DRYRUN_RTOL, sane outputs. Returns the
+    peak's and the temp's relative errors."""
+    pd = rec["per_device"]
+    check(real["argument_bytes"] == pd["argument_bytes"],
+          f"dryrun_check: {name}: predicted argument bytes "
+          f"{pd['argument_bytes']} != allocated "
+          f"{real['argument_bytes']}")
+    rel = (pd["peak_bytes"] - real["peak_bytes"]) / real["peak_bytes"]
+    check(abs(rel) <= DRYRUN_RTOL,
+          f"dryrun_check: {name}: predicted peak {pd['peak_bytes']} "
+          f"against measured {real['peak_bytes']} ({rel:+.4f})")
+    temp_rel = (pd["temp_bytes"] - real["temp_bytes"]) / real["temp_bytes"]
+    check(abs(temp_rel) <= DRYRUN_RTOL,
+          f"dryrun_check: {name}: predicted temp {pd['temp_bytes']} "
+          f"against measured {real['temp_bytes']} ({temp_rel:+.4f})")
+    if shape.kind == "decode":
+        check(all(0 <= t < cfg.vocab_size for step in real["outputs"]
+                  for t in step),
+              f"dryrun_check: tokens {real['outputs']}")
+    else:
+        check(all(np.isfinite(loss) for step in real["outputs"]
+                  for loss in step),
+              f"dryrun_check: losses {real['outputs']}")
+    return rel, temp_rel
+
+
+def dryrun_rank_cells() -> list:
+    """The (config, shape, microbatches) of phase 25 checked on
+    DRYRUN_RANK_MESH: DRYRUN_RANK_CELLS and DRYRUN_TRAIN_CHECK."""
+    return [c for c in dryrun_cells() if (c[0].name, c[1].name) in
+            DRYRUN_RANK_CELLS or c[1].kind == "train"]
+
+
+def start_dryrun_ranks(out_dir: str) -> tuple:
+    """Start phase 25's two gloo ranks sharing the card (this script's
+    rank entry), which run the real steps of :func:`dryrun_rank_cells`
+    and write them into ``out_dir``; they run beside phase 24, which is
+    host work."""
+    specs = [{"arch": cfg.name, "layers": cfg.n_layers,
+              "shape": dataclasses.asdict(shape), "microbatches": mb,
+              "model_parallel": DRYRUN_RANK_MESH[1]}
+             for cfg, shape, mb in dryrun_rank_cells()]
+    return start_ranks(2, "chip_smoke", ["--dryrun-rank", json.dumps(specs),
+                                         out_dir])
+
+
+def dryrun_check_phase(smi: str, ranks: tuple, out_dir: str) -> None:
+    """Phase 25: the records of DRYRUN_CHECK_CELLS and of
+    DRYRUN_TRAIN_CHECK on the 1 x 1 host mesh against real steps on the
+    card, then those of :func:`dryrun_rank_cells` on DRYRUN_RANK_MESH
+    against the two gloo ranks of :func:`start_dryrun_ranks` (waited for
+    first: the card holds either them or the 1 x 1 steps)."""
+    from repro_torch.launch.dryrun import cell_record, real_step
+    from repro_torch.launch.mesh import abstract_mesh, make_host_mesh
+    wall = wait_ranks(ranks)
+    reals = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reals.append(json.load(f))
+    mesh = make_host_mesh()
+    for cfg, shape, microbatches in dryrun_cells():
         t_cell = time.perf_counter()
         rec = cell_record(cfg, shape, mesh, microbatches=microbatches)
         pd = rec["per_device"]
@@ -1838,27 +1958,7 @@ def dryrun_check_phase(smi: str) -> None:
         check(rec["status"] == "ok" and
               rec["trace"]["microbatches"] == microbatches,
               f"dryrun_check: {name}: {rec}")
-        check(real["argument_bytes"] == pd["argument_bytes"],
-              f"dryrun_check: {name}: predicted argument bytes "
-              f"{pd['argument_bytes']} != allocated "
-              f"{real['argument_bytes']}")
-        rel = (pd["peak_bytes"] - real["peak_bytes"]) / real["peak_bytes"]
-        check(abs(rel) <= DRYRUN_RTOL,
-              f"dryrun_check: {name}: predicted peak {pd['peak_bytes']} "
-              f"against measured {real['peak_bytes']} ({rel:+.4f})")
-        temp_rel = (pd["temp_bytes"] - real["temp_bytes"]) / \
-            real["temp_bytes"]
-        check(abs(temp_rel) <= DRYRUN_RTOL,
-              f"dryrun_check: {name}: predicted temp {pd['temp_bytes']} "
-              f"against measured {real['temp_bytes']} ({temp_rel:+.4f})")
-        if shape.kind == "decode":
-            check(all(0 <= t < cfg.vocab_size for step in real["outputs"]
-                      for t in step),
-                  f"dryrun_check: tokens {real['outputs']}")
-        else:
-            check(all(np.isfinite(loss) for step in real["outputs"]
-                      for loss in step),
-                  f"dryrun_check: losses {real['outputs']}")
+        rel, temp_rel = dryrun_held(name, rec, real, cfg, shape)
         bound = pd["argument_bytes"] / HBM_BYTES_PER_S * 1e3
         phase("dryrun_check", arch=cfg.name, layers=cfg.n_layers,
               shape=shape.name, mesh=rec["mesh"],
@@ -1877,34 +1977,129 @@ def dryrun_check_phase(smi: str) -> None:
               bytes_bound_ms=bound, bound_share=bound / real["ms"],
               card=json.dumps(smi),
               seconds=round(time.perf_counter() - t_cell, 1))
+    # On a rank of (1, 2): the record in this process, in a fake world
+    # (one process has one default group: none may be running here).
+    check(not torch.distributed.is_initialized(),
+          "dryrun_check: a process group is running in the script's "
+          "process")
+    ranked = dryrun_rank_cells()
+    t_ranked = time.perf_counter()
+    for k, (cfg, shape, microbatches) in enumerate(ranked):
+        rec = cell_record(cfg, shape, abstract_mesh(DRYRUN_RANK_MESH,
+                                                    ("data", "model")),
+                          microbatches=microbatches)
+        check(rec["status"] == "ok" and rec["trace"]["per_rank"],
+              f"dryrun_check: {cfg.name} x {shape.name}: {rec}")
+        pd = rec["per_device"]
+        name = (f"{cfg.name} ({cfg.n_layers} layers) x {shape.name} on "
+                f"{rec['mesh']}")
+        for r in range(2):
+            real = reals[r][k]
+            rel, temp_rel = dryrun_held(f"{name}, rank {r}", rec, real,
+                                        cfg, shape)
+            check(real["collective_bytes"] == rec["collective_bytes"],
+                  f"dryrun_check: {name}, rank {r}: traced collectives "
+                  f"{rec['collective_bytes']} against measured "
+                  f"{real['collective_bytes']}")
+            phase("dryrun_check", arch=cfg.name, layers=cfg.n_layers,
+                  shape=shape.name, mesh=rec["mesh"], rank=r, ranks=2,
+                  backend="gloo (both ranks time-slice one card, every "
+                          "collective through the host)",
+                  microbatches=microbatches,
+                  units=json.dumps(rec["trace"]["units"]),
+                  argument_bytes=pd["argument_bytes"],
+                  allocated_bytes=real["argument_bytes"],
+                  predicted_peak_bytes=pd["peak_bytes"],
+                  measured_peak_bytes=real["peak_bytes"],
+                  peak_rel_err=rel,
+                  predicted_temp_bytes=pd["temp_bytes"],
+                  measured_temp_bytes=real["temp_bytes"],
+                  temp_rel_err=temp_rel,
+                  full_width_temp_bytes=rec["trace"]["full_width_temp_bytes"],
+                  collective_bytes=json.dumps(rec["collective_bytes"]),
+                  measured_collective_bytes=json.dumps(
+                      real["collective_bytes"]),
+                  flops=rec["flops"], measured_flops=real["flops"],
+                  bytes_accessed=rec["bytes_accessed"],
+                  trace_s=rec["trace"]["seconds"],
+                  shared_card_step_ms=real["ms"],
+                  step_ms_each=json.dumps(real["step_ms"]),
+                  outputs=json.dumps(real["outputs"]),
+                  card=json.dumps(smi))
+        check(reals[0][k]["outputs"] == reals[1][k]["outputs"],
+              f"dryrun_check: {name}: the ranks' outputs differ")
+    phase("dryrun_check", mesh="x".join(map(str, DRYRUN_RANK_MESH)),
+          cells=len(ranked), ranks_wall_s=round(wall, 1),
+          records_s=round(time.perf_counter() - t_ranked, 1))
 
 
-def run_ranks(nproc: int, module: str, args: list,
-              timeout: float = RANKS_TIMEOUT_S) -> float:
-    """``python -m torch.distributed.run --standalone --nproc-per-node
-    nproc -m module args`` from the repo root with ``src`` on the path,
-    in a session of its own: killed with all its ranks if it outlives
-    ``timeout``; raises unless it exits 0. Returns its wall seconds."""
-    import signal
+def dryrun_rank(specs: list, out_dir: str) -> None:
+    """One gloo rank of phase 25's (1, 2) check, under ``python -m
+    torch.distributed.run``: ``real_step(mesh=...)`` on the card for
+    each spec in turn, the results as ``rank<r>.json`` in ``out_dir``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import dist
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import real_step
+    from repro_torch.launch.mesh import make_host_mesh
+    rank = dist.init_distributed("gloo")
+    try:
+        torch.cuda.set_device(dist.local_device("cuda"))
+        out = []
+        for spec in specs:
+            cfg = get_config(spec["arch"]).scaled(n_layers=spec["layers"])
+            mesh = make_host_mesh(model_parallel=spec["model_parallel"])
+            out.append(real_step(cfg, ShapeSpec(**spec["shape"]),
+                                 microbatches=spec["microbatches"],
+                                 steps=DRYRUN_STEPS, mesh=mesh))
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_ranks(nproc: int, module: str, args: list) -> tuple:
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node nproc -m module args`` from the repo root with
+    ``src`` on the path, in a session of its own; :func:`wait_ranks`
+    ends it. Returns (process, start time, what it runs)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
                OMP_NUM_THREADS="4")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), "-m", module] + args
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=str(root), env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
+    return proc, time.perf_counter(), f"{module} on {nproc} ranks"
+
+
+def wait_ranks(started: tuple, timeout: float = RANKS_TIMEOUT_S) -> float:
+    """Wait for :func:`start_ranks`' run: killed with all its ranks if
+    it outlives ``timeout``; raises unless it exits 0. Returns its wall
+    seconds."""
+    import signal
+    proc, t0, what = started
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise RuntimeError(f"{module} on {nproc} ranks outlived {timeout} s")
+        raise RuntimeError(f"{what} outlived {timeout} s")
     check(proc.returncode == 0,
-          f"{module} on {nproc} ranks exited {proc.returncode}:\n"
-          f"{out[-2000:]}\n{err[-4000:]}")
+          f"{what} exited {proc.returncode}:\n{out[-2000:]}\n"
+          f"{err[-4000:]}")
     return time.perf_counter() - t0
+
+
+def run_ranks(nproc: int, module: str, args: list,
+              timeout: float = RANKS_TIMEOUT_S) -> float:
+    """:func:`start_ranks`, then :func:`wait_ranks`."""
+    return wait_ranks(start_ranks(nproc, module, args), timeout)
 
 
 def gloo_cuda_phase() -> dict:
@@ -2742,8 +2937,16 @@ def run_phases() -> None:
     train_phase(dev)
 
     # ---------------------------------------------- 24-25. the dry-run ----
-    dryrun_phase()
-    dryrun_check_phase(smi)
+    with tempfile.TemporaryDirectory(dir=BUILD) as rank_out:
+        ranks = start_dryrun_ranks(rank_out)
+        try:
+            dryrun_phase()
+            dryrun_check_phase(smi, ranks, rank_out)
+        finally:
+            if ranks[0].poll() is None:        # a phase failed: stop them
+                import signal
+                os.killpg(ranks[0].pid, signal.SIGKILL)
+                ranks[0].communicate()
 
     # ------------------------------------- 26-27. sharded training ----
     probe = gloo_cuda_phase()
@@ -2798,4 +3001,7 @@ def run_phases() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dryrun-rank"]:
+        dryrun_rank(json.loads(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -34,6 +34,16 @@ mesh axes, and collectives called by hand where GSPMD would insert them.
   scale's maximum over the ranks that split its tensor, with the
   maximum's gradient). A collective over a ``None`` group (an axis of
   size 1) is the identity.
+* :func:`collective_bytes` counts what the collectives above have
+  moved since :func:`reset_collective_bytes`: the bytes of each call's
+  output under the reference's HLO name (``all-reduce``: the tensor;
+  ``all-gather``: the gathered tensor; ``reduce-scatter``: this rank's
+  part; a broadcast, which the reference's steps do not have, under its
+  ``c10d`` name ``broadcast_``).
+* :func:`fake_world` runs one rank of a world of any size in this
+  process on torch's fake backend, which completes every collective
+  without moving a byte: the dry-run traces a rank's real sharded step
+  under it, on fake tensors.
 
 Gloo takes CUDA tensors for every collective used here in the torch of
 the card's machine (2.11; :func:`probe_gloo_cuda`, ``python -m
@@ -48,8 +58,10 @@ Imports no JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, FrozenSet, Iterable, Optional, Sequence, Tuple
@@ -67,7 +79,8 @@ __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
            "reduce_scatter", "broadcast", "broadcast_int", "all_gather_ints",
            "barrier", "copy_to_parallel", "reduce_from_parallel",
            "gather_from_parallel", "gather_out_of_parallel",
-           "sum_in_parallel", "max_from_parallel"]
+           "sum_in_parallel", "max_from_parallel", "collective_bytes",
+           "reset_collective_bytes", "fake_world"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -127,6 +140,38 @@ def init_distributed(backend: str, *, rank: Optional[int] = None,
     if backend == "nccl":
         torch.cuda.set_device(local_device("cuda"))
     return dist.get_rank()
+
+
+@contextlib.contextmanager
+def fake_world(axis_sizes: Sequence[int], rank: int = 0):
+    """Run rank ``rank`` of a world of ``prod(axis_sizes)`` ranks in this
+    process, on torch's fake backend (``fake_pg``): the default group and
+    every group made inside complete their collectives at once and move
+    nothing, so a rank's sharded step runs on fake tensors
+    (``FakeTensorMode``) as it would on its own card. Yields the world
+    size; the group ends on exit.
+
+    Raises if a process group is already running in this process (one
+    process has one default group) or if this torch has no fake
+    backend."""
+    if is_initialized():
+        raise RuntimeError("a torch.distributed process group is already "
+                           "running in this process; the fake world needs "
+                           "a process of its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(f"this torch ({torch.__version__}) has no fake "
+                           f"process-group backend: {e}") from None
+    n = math.prod(int(a) for a in axis_sizes)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} of a world of {n}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield n
+    finally:
+        dist.destroy_process_group()
 
 
 def is_initialized() -> bool:
@@ -276,6 +321,23 @@ def mesh_axis(mesh, names: Iterable[str]) -> ParallelAxis:
 
 # -------------------------------------------------------- collectives ----
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_MOVED: Dict[str, int] = {}
+
+
+def _moved(kind: str, x: torch.Tensor) -> None:
+    _MOVED[kind] = _MOVED.get(kind, 0) + x.numel() * x.element_size()
+
+
+def collective_bytes() -> Dict[str, int]:
+    """Output bytes of the collectives called since
+    :func:`reset_collective_bytes`, by kind (see the module
+    docstring)."""
+    return dict(_MOVED)
+
+
+def reset_collective_bytes() -> None:
+    """Start :func:`collective_bytes` from nothing."""
+    _MOVED.clear()
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -285,6 +347,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         with obs.span("dist.all_reduce", cat="dist", op=op,
                       bytes=x.numel() * x.element_size()):
             dist.all_reduce(x, op=_OPS[op], group=group)
+        _moved("all-reduce", x)
     return x
 
 
@@ -322,6 +385,7 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     with obs.span("dist.broadcast", cat="dist",
                   bytes=x.numel() * x.element_size()):
         dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    _moved("broadcast_", x)
     return x
 
 
@@ -369,6 +433,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     with obs.span("dist.all_gather", cat="dist",
                   bytes=out.numel() * out.element_size()):
         _all_gather_single(out, src, group=group)
+    _moved("all-gather", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -386,6 +451,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     with obs.span("dist.reduce_scatter", cat="dist",
                   bytes=src.numel() * src.element_size()):
         _reduce_scatter_single(out, src, group=group)
+    _moved("reduce-scatter", out)
     return out.movedim(0, dim).contiguous()
 
 

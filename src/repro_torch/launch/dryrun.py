@@ -3,14 +3,16 @@ mesh) cell, without allocating the model.
 
 The port's counterpart of ``repro.launch.dryrun``. The reference jits
 each cell's real step over 512 placeholder host devices and reads XLA's
-memory and cost analyses of the compiled program. The port has no
-compiler to ask, and its meshes are abstract
+memory and cost analyses of the partitioned program of one device. The
+port has no compiler to ask; it runs the partitioned program of one
+device instead, on fake tensors. Its meshes
 (:func:`repro_torch.launch.mesh.make_production_mesh`):
 
 * single-pod: 16 x 16  ("data", "model")        = 256 chips
 * multi-pod:  2 x 16 x 16 ("pod","data","model") = 512 chips
 
-Each record has two sources:
+A record is rank 0's share of its step (the reference's keys, and their
+meaning: one device's):
 
 * **argument and output bytes, exact, from the partition specs**
   (:mod:`repro_torch.train.sharding`): every leaf's shard bytes on one
@@ -21,45 +23,86 @@ Each record has two sources:
   parameters, the bf16 decode states and ``token``/``position`` and
   gives the next token and the states (the reference's
   ``out_shardings``).
-* **FLOPs and temp bytes from a trace** of the real step under
-  ``FakeTensorMode`` (shapes only, nothing allocated), counted by
-  :class:`StepTrace`: train is ``make_train_step``'s loss and gradients
-  with remat plus the AdamW update, prefill ``make_prefill``, decode
-  ``make_serve_step``. The trace runs at the per-device batch (the
-  global batch over the data axes), train at one microbatch of it
-  (:data:`MICROBATCHES_BY_ARCH`) with the FLOPs scaled by the
-  microbatches the device runs. ``flops`` is the trace's count over the
-  model-axis size. ``temp_bytes`` is the trace's peak of live bytes
-  minus its arguments; the trace keeps the full width, so it ignores
-  tensor parallelism's split of activations and gradients: **an upper
-  bound**. ``peak_bytes = argument_bytes + temp_bytes``, as in the
-  reference.
+* **FLOPs, bytes accessed, collective bytes and temp bytes from a trace
+  of the rank's real sharded step.** :func:`cell_record` starts a fake
+  world of the mesh's ranks in this process
+  (:func:`repro_torch.dist.fake_world`: torch's fake process-group
+  backend, whose collectives complete at once and move nothing), lays
+  the mesh over it (:func:`repro_torch.launch.mesh.mesh_over_ranks`: 33
+  groups on 16 x 16, 355 on 2 x 16 x 16) and runs rank 0's step under
+  ``FakeTensorMode`` and :class:`StepTrace`, on this rank's shards of
+  the parameters, optimizer state and decode states as fake tensors:
+  decode ``make_serve_step(model, mesh)`` and prefill
+  ``make_prefill(model, mesh)`` on the whole batch (each rank takes its
+  rows), train one microbatch of this rank's rows through
+  ``make_train_parts`` (the very step of ``make_train_step``: loss and
+  gradients under remat, the reduce-scatter over ``data`` into the
+  ZeRO-1 float32 sums that a microbatch after the first holds, then the
+  step's end: scale, AdamW on this rank's slices and their all-gather).
+  A microbatch's counts are scaled by the microbatches the device runs
+  (:data:`MICROBATCHES_BY_ARCH`), the step's end counted once.
+  ``flops`` by ``torch.utils.flop_counter``'s formulas;
+  ``collective_bytes`` the output operand of every ``c10d`` collective
+  the step calls, under the reference's HLO name (all-reduce: its
+  tensor; all-gather: the gathered tensor; reduce-scatter: this rank's
+  part), as the reference's :func:`collective_bytes` sums an HLO text
+  (a collective the reference has no name for keeps its ``c10d`` name
+  and gets a note); ``bytes_accessed`` every operator's tensor inputs
+  and outputs at numel x itemsize, 0 for one whose outputs are views of
+  its inputs, collectives counted like any operator: what eager
+  execution reads and writes, the unfused counterpart of XLA's ``bytes
+  accessed``, a count and not a measurement, each microbatch counted
+  as one after the first; ``temp_bytes`` the rank's peak of live bytes
+  less its arguments. ``peak_bytes = argument_bytes + temp_bytes``, as
+  in the reference. ``trace.full_width_temp_bytes`` (and
+  ``full_width_flops``) are the same step's at the whole width on one
+  device at the device's rows, for comparison; a rank that gathers
+  whole leaves (a KV head the model axis splits below its width) can
+  hold more temp than that.
 
 Train and prefill trace the stacked units at 2 and at 3 (prefix,
 suffix and encoder whole) and extrapolate linearly to the config's
-depth: exact for the FLOPs, since the units are identical. The peak of
-live bytes is extrapolated phase by phase and the largest taken: train's
-forward and backward up to the first stacked unit, its backward of the
-first and of the last unit (the saved inputs go as the gradients come,
-so the peak of the units' backward sits at one end or the other), the
-accumulation and the update; each grows with depth at its own rate, and
-at full width the peak moves between them (gemma2-9b x train_4k: at 2
-and 3 units the forward's, at 21 the first unit's backward). The first
-unit is unlike the rest, so it gives no slope. A config cut in depth is
-the same config with fewer layers (:func:`at_depth`); :func:`trace_step`
-with ``units=None`` traces every unit, and the tests hold the
-extrapolation against it. Decode traces its full depth (a step is one
-token).
+depth: exact for the FLOPs and the collectives, since the units are
+identical. Train's bytes accessed grow with the square of the depth (each
+unit's gradient is a select's backward, a zero tensor the size of the
+whole stacked leaf, added into the leaf's gradient), so train is also
+traced at 4 units and its bytes accessed taken on the parabola through
+the three. The peak of live bytes is extrapolated phase by phase and
+the largest taken: train's forward and backward up to the first stacked
+unit, its backward of the first and of the last unit (the saved inputs
+go as the gradients come, so the peak of the units' backward sits at
+one end or the other), the reduction and accumulation and the step's
+end; each grows with depth at its own rate, and at full width the peak
+moves between them (gemma2-9b x train_4k: at 2 and 3 units the
+forward's, at 21 the first unit's backward). The first unit is unlike
+the rest, so it gives no slope. A config cut in depth is the same config
+with fewer layers (:func:`at_depth`); :func:`trace_step` with
+``units=None`` traces every unit, and the tests hold the extrapolation
+against it. Decode traces its full depth (a step is one token).
 MoE routing is taken balanced under the trace
-(``repro_torch.models.blocks._expert_counts``), which leaves the FLOPs
-of dropless dispatch unchanged. A train step of more than one
-microbatch holds a float32 gradient accumulator (full width); the trace
-holds it too.
+(``repro_torch.models.blocks._expert_counts``: T*k // E pairs an
+expert, the remainder one each to the first experts, which rank 0
+holds), which leaves the FLOPs of dropless dispatch over all the ranks
+unchanged.
 
-There is no compiled, partitioned program: ``compile_s`` and
-``bytes_accessed`` are ``None`` and ``collective_bytes`` is ``{}`` (each
-record's ``notes`` say so); :func:`collective_bytes` is kept for HLO
-text. The records keep the reference's keys.
+**The exception: heads the model axis does not split.** The port splits
+attention by heads (Megatron's layout), and ``tensor_parallel`` refuses
+a model axis that does not divide them; GSPMD splits inside a head.
+whisper-small's 12 heads over 16 model ranks are the one case among the
+configs (its train, prefill and decode records on both meshes): those
+records keep the whole-width trace at the per-device batch, with
+FLOPs and bytes accessed over the model axis and temp bytes an upper
+bound, ``trace.per_rank`` false (true elsewhere), ``collective_bytes``
+None (not counted) and a note that names the refusal. Any other
+failure of the rank's trace fails the record.
+
+No compiler runs: ``compile_s`` is None. :func:`collective_bytes` is
+kept for HLO text. On a mesh of one device (``make_host_mesh()``'s
+1 x 1) the record is the whole-width trace, with no collectives.
+:func:`real_step` runs the real steps a record is held against: on the
+card or the host, on one device or as one rank of a running process
+group (``mesh=``), with the collective bytes that
+``repro_torch.dist``'s wrappers counted.
 
 Usage (on the card, whose memory each record's peak is held against)::
 
@@ -73,6 +116,7 @@ NVIDIA H100 80GB HBM3 (:data:`H100_MEMORY_BYTES`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -86,18 +130,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
-from repro_torch import obs
+from repro_torch import dist, obs
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.shapes import shape_applicable
 from repro_torch.engine import Engine
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import (Mesh, abstract_mesh,
+                                     make_production_mesh, mesh_over_ranks)
 from repro_torch.models import build_model, input_specs
+from repro_torch.models.blocks import tensor_parallel
 from repro_torch.models.model import abstract_params
 from repro_torch.models.transformer import init_decode_state, stack_plan
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-from repro_torch.train import make_prefill, make_serve_step, make_train_step
+from repro_torch.optim import AdamWConfig, OptState
+from repro_torch.train import (make_prefill, make_serve_step,
+                               make_train_parts, make_train_step)
 from repro_torch.train.sharding import (batch_shardings, param_shardings,
                                         shard_shape, state_shardings,
                                         zero1_shardings)
@@ -105,11 +152,12 @@ from repro_torch.tree import (tree_flatten, tree_flatten_with_path,
                               tree_leaves, tree_map)
 
 __all__ = ["MICROBATCHES", "MICROBATCHES_BY_ARCH", "COLLECTIVE_RE",
-           "SHAPE_RE", "DTYPE_BYTES", "H100_MEMORY_BYTES",
+           "SHAPE_RE", "DTYPE_BYTES", "H100_MEMORY_BYTES", "C10D_KINDS",
            "collective_bytes", "abstract_params", "abstract_states",
            "spec_bytes", "train_state_bytes", "StepTrace", "at_depth",
            "trace_step",
-           "lower_cell", "cell_record", "real_step", "main"]
+           "lower_cell", "whole_width_cell", "cell_record", "real_step",
+           "main"]
 
 # No logging side effects at import time: handlers attach only when
 # main() calls obs.setup_logging() (see repro_torch.obs.logging).
@@ -141,12 +189,25 @@ DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s64": 8, "u64": 8,
 H100_MEMORY_BYTES = 85_017_493_504
 H100_NAME = "NVIDIA H100 80GB HBM3"
 
-NOTES = ("no compiled, partitioned program: compile_s and bytes_accessed "
-         "are null and collective_bytes is empty (collectives wait for the "
-         "specs applied through torch.distributed); argument and output "
-         "bytes are exact from the partition specs; flops and temp_bytes "
-         "come from a FakeTensorMode trace at the per-device batch and full "
-         "width, so temp_bytes (and peak_bytes) is an upper bound")
+NOTES = ("rank 0's step on its mesh (one device's share of the "
+         "partitioned step): argument and output bytes exact from the "
+         "partition specs; flops, bytes_accessed, collective_bytes and "
+         "temp_bytes from a FakeTensorMode trace of the port's sharded step "
+         "on this rank's shards in a fake process group of the mesh's "
+         "ranks, a microbatch's counts times the microbatches plus the "
+         "step's end; collective_bytes is each collective's output operand "
+         "under the reference's HLO name; bytes_accessed is a count, not a "
+         "measurement: every operator's tensor inputs and outputs as eager "
+         "execution runs them (views count 0, nothing is fused), each "
+         "microbatch counted as one after the first; trace."
+         "full_width_temp_bytes is the same step's temp at the whole width "
+         "on one device; no compiler runs, so compile_s is null")
+WHOLE_WIDTH_NOTE = ("per_rank false: {} (the port splits attention by "
+                    "heads; GSPMD splits inside a head): this record "
+                    "keeps the whole-width trace at the per-device batch, "
+                    "flops and bytes_accessed over the model axis and "
+                    "temp_bytes an upper bound; collective_bytes is null, "
+                    "not counted")
 
 
 def collective_bytes(hlo_text: str) -> Dict[str, int]:
@@ -261,18 +322,50 @@ def spec_bytes(cfg, shape, mesh: Mesh, params=None) -> Tuple[int, int]:
 
 
 # ------------------------------------------------------------- trace ----
+# The reference's HLO names of the c10d operators that repro_torch.dist's
+# collectives dispatch to (torch 2.11 and 2.13 alike).
+C10D_KINDS = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+              "_reduce_scatter_base_": "reduce-scatter"}
+_NOT_MOVED = ("barrier",)      # dist's counter leaves barriers out too
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _writes(func) -> bool:
+    return any(a.alias_info is not None and a.alias_info.is_write
+               for a in func._schema.arguments)
+
+
 class StepTrace(TorchDispatchMode):
     """Counts what the operators run under it do: ``flops``, by
     ``torch.utils.flop_counter``'s formulas (``FlopCounterMode``'s
-    count), and the bytes of live storage, each storage from the
-    operator that makes it until it is freed, starting from the storages
-    of ``args``. ``args_bytes`` is their total; ``peak`` the most live
-    at once since the last :meth:`mark`, which closes a phase and keeps
-    its peak in ``peaks``."""
+    count); ``bytes_accessed``, each operator's tensor inputs and outputs
+    at numel x itemsize each, 0 for one whose outputs are views of its
+    inputs (a view, ``as_strided``, ``detach``); ``collective_bytes``,
+    the output operand of every ``c10d`` collective by the reference's
+    HLO name (:data:`C10D_KINDS`; another collective under its ``c10d``
+    name, also kept in ``other_kinds``); and the bytes of live storage,
+    each storage from the operator that makes it until it is freed,
+    starting from the storages of ``args``. ``args_bytes`` is their
+    total; ``peak`` the most live at once since the last :meth:`mark`,
+    which closes a phase and keeps its peak in ``peaks``."""
 
     def __init__(self, args):
         super().__init__()
         self.flops = 0
+        self.bytes_accessed = 0
+        self.collective_bytes: Dict[str, int] = {}
+        self.other_kinds: set = set()
         self.live = 0
         self.peak = 0
         self.peaks: list = []
@@ -281,6 +374,11 @@ class StepTrace(TorchDispatchMode):
         for x in tree_leaves(args):
             self._track(x)
         self.args_bytes = self.live
+
+    def counts(self) -> Dict[str, Any]:
+        """``flops``, ``bytes_accessed`` and ``collective_bytes`` so far."""
+        return {"flops": self.flops, "bytes_accessed": self.bytes_accessed,
+                "collective_bytes": dict(self.collective_bytes)}
 
     def mark(self) -> None:
         """Close a phase: keep its peak, start the next from what is
@@ -311,28 +409,50 @@ class StepTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        ins = list(_tensors(list(args) + list(kwargs.values())))
         out = func(*args, **kwargs)
+        outs = list(_tensors(out))
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)
-        for x in (out if isinstance(out, (tuple, list)) else (out,)):
-            if isinstance(x, torch.Tensor):
-                self._track(x)
+        held = {id(x.untyped_storage()) for x in ins}
+        if func.namespace == "c10d" or _writes(func) or not all(
+                id(x.untyped_storage()) in held for x in outs):
+            self.bytes_accessed += sum(_nbytes(x) for x in ins + outs)
+        if func.namespace == "c10d":
+            name = func._overloadpacket.__name__
+            if name not in _NOT_MOVED:
+                kind = C10D_KINDS.get(name, name)
+                if name not in C10D_KINDS:
+                    self.other_kinds.add(name)
+                self.collective_bytes[kind] = self.collective_bytes.get(
+                    kind, 0) + sum(_nbytes(x) for x in _tensors(args[0]))
+        for x in outs:
+            self._track(x)
         return out
 
 
-def _fake(x: torch.Tensor, units: Optional[int] = None) -> torch.Tensor:
-    """A fake tensor shaped as ``x`` (its leading axis ``units`` when
-    given): called under ``FakeTensorMode``."""
-    shp = tuple(x.shape) if units is None else (units, *x.shape[1:])
-    return torch.empty(shp, dtype=x.dtype)
+def _fake_shards(mesh: Mesh, tree, specs, dtype=None):
+    """``tree`` (meta tensors) as fake tensors of this rank's shards by
+    ``specs`` on ``mesh``, in their dtype or ``dtype``: called under
+    ``FakeTensorMode``."""
+    leaves, treedef = tree_flatten(tree)
+    spec_leaves = [sp for _, sp in tree_flatten_with_path(
+        specs, is_leaf=_is_spec)[0]]
+    return treedef.unflatten([
+        torch.empty(shard_shape(mesh, tuple(x.shape), spec),
+                    dtype=dtype or x.dtype)
+        for x, spec in zip(leaves, spec_leaves)])
 
 
-def _cut(tree, units: Optional[int]):
-    """``tree`` (parameters or decode states, as meta tensors) as fake
-    tensors, its stacked ``scan`` units cut to the first ``units``."""
-    return {k: (tree_map(lambda x: _fake(x, units), v) if k == "scan"
-                else tree_map(_fake, v)) for k, v in tree.items()}
+def _cut_meta(tree, units: Optional[int]):
+    """``tree`` (meta tensors) with its stacked ``scan`` units cut to the
+    first ``units`` (all when None)."""
+    if units is None:
+        return tree
+    return {k: (tree_map(lambda x: torch.empty(
+        (units, *x.shape[1:]), dtype=x.dtype, device="meta"), v)
+        if k == "scan" else v) for k, v in tree.items()}
 
 
 def _unit_selects(loss: torch.Tensor, stacked) -> list:
@@ -355,41 +475,6 @@ def _unit_selects(loss: torch.Tensor, stacked) -> list:
     return out
 
 
-def _train_microbatch(model, params, opt, batch, microbatches: int,
-                      tr: StepTrace) -> None:
-    """One microbatch of ``make_train_step``'s step: its loss and
-    gradients (``model.loss`` under remat, then ``torch.autograd.grad``),
-    summed into the float32 accumulator that a step of more than one
-    microbatch holds, then the AdamW update.
-
-    Phases (:meth:`StepTrace.mark`): the forward and backward up to the
-    first stacked unit's gradients, one phase a stacked unit as backward
-    reaches it (:meth:`StepTrace.unit`, from the unit's select nodes),
-    the accumulation, the update. The peak can sit at either end of the
-    units' backward (the saved inputs go as the gradients come), so the
-    first and the last unit's phases are kept apart."""
-    leaves, treedef = tree_flatten(params)
-    acc = None
-    if microbatches > 1:   # what the earlier microbatches left behind
-        acc = [torch.zeros(x.shape, dtype=torch.float32) for x in leaves]
-    loss = model.loss(params, batch)
-    for node in _unit_selects(loss, params["scan"]):
-        node.register_prehook(lambda _, i=node._saved_index: tr.unit(i))
-    grads = list(torch.autograd.grad(loss, leaves))
-    del loss
-    tr.mark()
-    if acc is not None:    # the step's sum and scale, a leaf at a time
-        for k, g in enumerate(grads):
-            acc[k] = acc[k] + g
-        del grads, g
-        for k in range(len(acc)):
-            acc[k] = acc[k] * (1.0 / microbatches)
-        grads = acc
-        del acc
-        tr.mark()
-    adamw_update(AdamWConfig(), treedef.unflatten(grads), opt, params)
-
-
 def at_depth(cfg, units: int):
     """``cfg`` with its stacked units cut to ``units``, prefix, suffix and
     encoder whole: the same config with fewer layers. Raises when the cut
@@ -402,49 +487,101 @@ def at_depth(cfg, units: int):
     return cut
 
 
-def trace_step(cfg, shape, rows: int, *, units: Optional[int] = None,
-               microbatches: int = 1, params=None) -> Dict[str, Any]:
-    """Trace one step of ``shape``'s kind on ``cfg`` at ``rows`` rows of
-    the batch under ``FakeTensorMode`` and :class:`StepTrace`, on
-    ``cfg`` cut to ``units`` stacked units (:func:`at_depth`; all of them
-    when None). ``params``: :func:`abstract_params` of ``cfg`` at full
-    depth or at ``units`` (cut to ``units`` here). Train is one
-    microbatch of a step of ``microbatches``
-    (:func:`_train_microbatch`), prefill ``make_prefill``, decode
-    ``make_serve_step``.
+def _minus(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+    """The counts of :meth:`StepTrace.counts` ``a`` less ``b``."""
+    coll = {k: v - b["collective_bytes"].get(k, 0)
+            for k, v in a["collective_bytes"].items()}
+    return {"flops": a["flops"] - b["flops"],
+            "bytes_accessed": a["bytes_accessed"] - b["bytes_accessed"],
+            "collective_bytes": {k: v for k, v in coll.items() if v}}
 
-    Returns ``flops``, ``args_bytes`` (the trace's inputs: full-width
-    parameters, optimizer state or decode states, and the batch),
-    ``peaks`` (each phase's peak of live bytes: train's before the units'
-    backward, of the first and of the last unit's, of the accumulation
-    and of the update; one for the others), ``peak_bytes`` (the largest
-    of every phase's) and ``seconds``."""
+
+def trace_step(cfg, shape, rows: int, *, units: Optional[int] = None,
+               microbatches: int = 1, params=None,
+               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+    """Trace one step of ``shape``'s kind on ``cfg`` under
+    ``FakeTensorMode`` and :class:`StepTrace`, on ``cfg`` cut to
+    ``units`` stacked units (:func:`at_depth`; all of them when None).
+    ``params``: :func:`abstract_params` of ``cfg`` at full depth or at
+    ``units`` (cut to ``units`` here).
+
+    ``mesh``: this rank's mesh of ranks (:func:`mesh_over_ranks` under a
+    running process group, :func:`repro_torch.dist.fake_world` for the
+    dry-run); its parameters, optimizer state and decode states are this
+    rank's shards by the partition rules, and the step is the sharded
+    step with its collectives. None: one device, the whole width.
+
+    The steps are the port's own: decode ``make_serve_step(model,
+    mesh)`` and prefill ``make_prefill(model, mesh)``, given the whole
+    batch of ``rows`` rows (each rank takes its rows); train one
+    microbatch of ``rows`` rows (this rank's) of a step of
+    ``microbatches`` through ``make_train_parts``: loss and gradients
+    under remat, their reduction over the data axes into the float32
+    sums that a microbatch after the first holds, then the step's end
+    (scale, AdamW on this rank's ZeRO-1 slices, their all-gather).
+
+    Returns ``flops``, ``bytes_accessed`` and ``collective_bytes`` (the
+    whole trace), ``step`` (the part of those that a train step does
+    once, at its end; zeros for the other kinds), ``args_bytes`` (the
+    trace's inputs), ``peaks`` (each phase's peak of live bytes: train's
+    before the units' backward, of the first and of the last unit's, of
+    the reduction and accumulation when there is any, and of the step's
+    end; one for the others), ``peak_bytes`` (the largest of every
+    phase's), ``other_kinds`` (collectives the reference has no name
+    for) and ``seconds``."""
     if units is not None:
         cfg = at_depth(cfg, units)
     if params is None:
         params = abstract_params(cfg)
+    params = _cut_meta(params, units)
     model = build_model(cfg, remat=shape.kind == "train",
                         engine=Engine("torch:device=cpu"))
+    where = mesh if mesh is not None else abstract_mesh((1, 1),
+                                                        ("data", "model"))
     specs = input_specs(cfg, shape)
     t0 = time.perf_counter()
+    step: Dict[str, Any] = {"flops": 0, "bytes_accessed": 0,
+                            "collective_bytes": {}}
+    if shape.kind == "train":
+        parts = make_train_parts(model, AdamWConfig(), mesh,
+                                 microbatches=microbatches)
+        reduces = dist.mesh_axis(mesh, ("pod", "data")).group is not None
     with FakeTensorMode():
-        p = _cut(params, units)
+        p = _fake_shards(where, params, param_shardings(where, params))
         batch = {k: torch.zeros((rows, *v.shape[1:]), dtype=v.dtype)
                  for k, v in specs.items()}
         if shape.kind == "train":
             tree_map(lambda x: x.requires_grad_(), p)
-            opt = adamw_init(p)
+            zspecs = zero1_shardings(where, params)
+            opt = OptState(*(_fake_shards(where, params, zspecs,
+                                          dtype=torch.float32)
+                             for _ in range(2)),
+                           torch.zeros((), dtype=torch.int32))
             with StepTrace((p, opt, batch)) as tr:
-                _train_microbatch(model, p, opt, batch, microbatches, tr)
+                def on_loss(loss):
+                    for node in _unit_selects(loss, p["scan"]):
+                        node.register_prehook(
+                            lambda _, i=node._saved_index: tr.unit(i))
+                acc = parts.accumulator(p, held=microbatches > 1)
+                loss = parts.microbatch(p, batch, acc, on_loss=on_loss,
+                                        on_grads=tr.mark)
+                if microbatches > 1 or reduces:
+                    tr.mark()
+                once = tr.counts()
+                parts.finish(p, opt, None, acc, loss)
+                del acc, loss
                 tr.mark()
+                step = _minus(tr.counts(), once)
         elif shape.kind == "prefill":
-            prefill, _ = make_prefill(model)
+            prefill, _ = make_prefill(model, mesh)
             with StepTrace((p, batch)) as tr:
                 prefill(p, batch)
                 tr.mark()
         else:
-            states = _cut(abstract_states(cfg, rows, shape.seq_len), None)
-            serve, _ = make_serve_step(model)
+            states = abstract_states(cfg, rows, shape.seq_len)
+            states = _fake_shards(where, states,
+                                  state_shardings(where, states))
+            serve, _ = make_serve_step(model, mesh)
             with StepTrace((p, states, batch)) as tr:
                 serve(p, states, batch["token"], batch["position"])
                 tr.mark()
@@ -453,8 +590,9 @@ def trace_step(cfg, shape, rows: int, *, units: Optional[int] = None,
         # one phase a unit: keep the first and the last (the peak of
         # those between lies on the line through them)
         phases = phases[:2] + phases[stack_plan(cfg)[2]:]
-    return {"flops": tr.flops, "args_bytes": tr.args_bytes,
+    return {**tr.counts(), "step": step, "args_bytes": tr.args_bytes,
             "peaks": phases, "peak_bytes": max(tr.peaks),
+            "other_kinds": sorted(tr.other_kinds),
             "seconds": time.perf_counter() - t0}
 
 
@@ -471,21 +609,66 @@ def _mesh_name(mesh: Mesh) -> str:
     return "x".join(str(n) for n in mesh.axis_sizes)
 
 
-def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-               verbose: bool = True) -> Dict[str, Any]:
-    """The record of one (arch x shape) cell on the production mesh,
-    with the reference's keys; ``status`` ``"skipped"`` where the shape
-    does not apply."""
+def _cell(arch: str, shape_name: str, multi_pod: bool):
+    """(config, shape, production mesh, microbatches) of a cell, or the
+    ``"skipped"`` record where the shape does not apply."""
     cfg = get_config(arch)
     shape = _shape_spec(shape_name)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "status": "skipped",
                 "reason": why}
-    mesh = make_production_mesh(multi_pod=multi_pod)
     mb = MICROBATCHES_BY_ARCH.get((arch, shape_name),
                                   MICROBATCHES.get(shape_name, 1))
-    return cell_record(cfg, shape, mesh, microbatches=mb, verbose=verbose)
+    return cfg, shape, make_production_mesh(multi_pod=multi_pod), mb
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               full_width: bool = True, verbose: bool = True
+               ) -> Dict[str, Any]:
+    """The record of one (arch x shape) cell on the production mesh,
+    with the reference's keys; ``status`` ``"skipped"`` where the shape
+    does not apply. ``full_width``: see :func:`cell_record`."""
+    cell = _cell(arch, shape_name, multi_pod)
+    if isinstance(cell, dict):
+        return cell
+    cfg, shape, mesh, mb = cell
+    return cell_record(cfg, shape, mesh, microbatches=mb,
+                       full_width=full_width, verbose=verbose)
+
+
+def whole_width_cell(arch: str, shape_name: str, *,
+                     multi_pod: bool = False) -> Dict[str, Any]:
+    """The ``trace.full_width_temp_bytes`` and ``full_width_flops`` of
+    :func:`lower_cell`'s record (and their ``seconds``), traced on their
+    own, so that they can be traced in another process beside
+    ``lower_cell(..., full_width=False)``."""
+    cell = _cell(arch, shape_name, multi_pod)
+    if isinstance(cell, dict):
+        return cell
+    cfg, shape, mesh, mb = cell
+    rows, n_mb = _device_rows(cfg, shape, mesh, mb)
+    return _whole_width(_trace_cell(cfg, shape, rows, n_mb,
+                                    abstract_params(cfg), None,
+                                    accessed=False))
+
+
+def _whole_width(full: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    return {"full_width_temp_bytes": full and full["temp"],
+            "full_width_flops": full and float(full["flops"]),
+            "seconds": full and full["seconds"]}
+
+
+def _device_rows(cfg, shape, mesh: Mesh, microbatches: int
+                 ) -> Tuple[int, int]:
+    """(rows a step of one device takes at once, the microbatches it
+    runs): a train shape splits the device's rows into ``microbatches``
+    (one row each where it has fewer rows), the others run them all."""
+    rows = _rows(mesh, cfg, shape)
+    if shape.kind != "train":
+        return rows, 1
+    per_mb = max(1, rows // microbatches)
+    return per_mb, -(-rows // per_mb)
 
 
 def _extrapolate(at2, at3, n_units: int):
@@ -493,149 +676,327 @@ def _extrapolate(at2, at3, n_units: int):
     return at2 + (n_units - 2) * (at3 - at2)
 
 
-def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
-                verbose: bool = False) -> Dict[str, Any]:
-    """:func:`lower_cell`'s record for a config, shape and mesh of one's
-    own, e.g. ``make_host_mesh()``'s 1 x 1 (a train shape splits each
-    device's rows into ``microbatches``)."""
-    t0 = time.perf_counter()
-    params = abstract_params(cfg)
-    args_b, out_b = spec_bytes(cfg, shape, mesh, params)
-    rows = _rows(mesh, cfg, shape)
-    n_mb = 1
-    if shape.kind == "train":
-        # a device with fewer rows than microbatches runs one row each
-        per_mb = max(1, rows // microbatches)
-        n_mb = -(-rows // per_mb)
-        rows = per_mb
+def _quadratic(at2, at3, at4, n_units: int):
+    """A count traced at 2, 3 and 4 stacked units that grows with their
+    square, at ``n_units`` (the parabola through the three)."""
+    return (_extrapolate(at2, at3, n_units)
+            + (n_units - 2) * (n_units - 3) // 2 * (at4 - 2 * at3 + at2))
+
+
+def _counts_at(two: Dict[str, Any], three: Dict[str, Any], n_units: int,
+               four: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """:meth:`StepTrace.counts` traced at 2 and 3 units, each count
+    extrapolated to ``n_units``; with ``four`` (the counts at 4 units)
+    ``bytes_accessed`` on the parabola through the three."""
+    kinds = set(two["collective_bytes"]) | set(three["collective_bytes"])
+    accessed = (_extrapolate(two["bytes_accessed"], three["bytes_accessed"],
+                             n_units) if four is None else
+                _quadratic(two["bytes_accessed"], three["bytes_accessed"],
+                           four["bytes_accessed"], n_units))
+    return {"flops": _extrapolate(two["flops"], three["flops"], n_units),
+            "bytes_accessed": accessed,
+            "collective_bytes": {k: _extrapolate(
+                two["collective_bytes"].get(k, 0),
+                three["collective_bytes"].get(k, 0), n_units)
+                for k in sorted(kinds)}}
+
+
+def _trace_cell(cfg, shape, rows: int, n_mb: int, params,
+                mesh: Optional[Mesh], accessed: bool = True
+                ) -> Dict[str, Any]:
+    """One device's counts for a step of ``n_mb`` microbatches from
+    :func:`trace_step` (decode and configs of at most three units at
+    their depth, the rest traced at 2 and 3 units and extrapolated, and
+    train's bytes accessed through 2, 3 and 4 units, unless not
+    ``accessed``: then None): ``flops``, ``bytes_accessed`` and
+    ``collective_bytes`` with a microbatch's counts times ``n_mb`` plus
+    the step's end, ``temp`` (the peak of live bytes less the
+    arguments), ``units``, ``other_kinds`` and ``seconds``."""
     n_units = stack_plan(cfg)[2]
     if shape.kind == "decode" or n_units <= 3:
-        tr = trace_step(cfg, shape, rows, microbatches=n_mb, params=params)
-        flops, temp = tr["flops"], tr["peak_bytes"] - tr["args_bytes"]
-        units_traced: Any = "all"
-        trace_s = tr["seconds"]
+        tr = trace_step(cfg, shape, rows, microbatches=n_mb, params=params,
+                        mesh=mesh)
+        whole, once = tr, tr["step"]
+        temp = tr["peak_bytes"] - tr["args_bytes"]
+        units: Any = "all"
+        traces = [tr]
     else:
-        two, three = (trace_step(cfg, shape, rows, units=u,
-                                 microbatches=n_mb, params=params)
-                      for u in (2, 3))
-        flops = _extrapolate(two["flops"], three["flops"], n_units)
+        # train also at 4 units: its bytes accessed grow with the square
+        # of the depth (each stacked unit's gradient is a select's
+        # backward, a zero tensor the size of the whole stacked leaf,
+        # added into the leaf's gradient)
+        depths = (2, 3, 4) if shape.kind == "train" and accessed else (2, 3)
+        traces = [trace_step(cfg, shape, rows, units=u, microbatches=n_mb,
+                             params=params, mesh=mesh) for u in depths]
+        two, three, four = (traces + [None])[:3]
+        whole = _counts_at(two, three, n_units, four)
+        once = _counts_at(two["step"], three["step"], n_units,
+                          four and four["step"])
         temp = max(_extrapolate(a - two["args_bytes"],
                                 b - three["args_bytes"], n_units)
                    for a, b in zip(two["peaks"], three["peaks"]))
-        units_traced = [2, 3]
-        trace_s = two["seconds"] + three["seconds"]
-    flops = flops * n_mb / mesh.shape.get("model", 1)
+        units = list(depths)
+    each = _minus(whole, once)
+    kinds = set(each["collective_bytes"]) | set(once["collective_bytes"])
+    return {"flops": each["flops"] * n_mb + once["flops"],
+            "bytes_accessed": (each["bytes_accessed"] * n_mb
+                               + once["bytes_accessed"]) if accessed
+            else None,
+            "collective_bytes": {k: each["collective_bytes"].get(k, 0) * n_mb
+                                 + once["collective_bytes"].get(k, 0)
+                                 for k in sorted(kinds)},
+            "temp": int(temp), "units": units,
+            "other_kinds": sorted({k for t in traces
+                                   for k in t["other_kinds"]}),
+            "seconds": sum(t["seconds"] for t in traces)}
+
+
+def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
+                full_width: bool = True, verbose: bool = False
+                ) -> Dict[str, Any]:
+    """:func:`lower_cell`'s record for a config, shape and mesh of one's
+    own, e.g. ``make_host_mesh()``'s 1 x 1 (a train shape splits each
+    device's rows into ``microbatches``).
+
+    On a mesh of more than one device the record is rank 0's: its real
+    sharded step traced in a fake world of the mesh's ranks
+    (:func:`repro_torch.dist.fake_world`, which raises when a process
+    group is running here). Where the model axis cannot split the
+    config's heads (``tensor_parallel`` refuses), the record keeps the
+    whole-width trace, its counts over the model axis, and
+    ``collective_bytes`` is None (see :data:`NOTES`). Without
+    ``full_width`` a rank's record skips the whole-width trace kept for
+    comparison (``trace.full_width_*`` None), which halves its time."""
+    t0 = time.perf_counter()
+    params = abstract_params(cfg)
+    args_b, out_b = spec_bytes(cfg, shape, mesh, params)
+    rows, n_mb = _device_rows(cfg, shape, mesh, microbatches)
+    notes = [NOTES]
+    refused = ranked = None
+    if mesh.size > 1:
+        # the rank's step takes the whole batch of decode and prefill,
+        # and its own rows of a train microbatch
+        given = rows if shape.kind == "train" else shape.global_batch
+        with dist.fake_world(mesh.axis_sizes):
+            rank_mesh = mesh_over_ranks(mesh.axis_sizes, mesh.axis_names)
+            try:
+                tensor_parallel(cfg, rank_mesh)
+            except NotImplementedError as e:
+                refused = str(e)
+            if refused is None:
+                ranked = _trace_cell(cfg, shape, given, n_mb, params,
+                                     rank_mesh)
+    # the whole width at this device's rows: the temp to compare with
+    # (and the record itself on one device or where the heads refuse)
+    full = None
+    if full_width or ranked is None:
+        full = _trace_cell(cfg, shape, rows, n_mb, params, None,
+                           accessed=ranked is None)
+    ranked = ranked or full
+    if refused is not None:
+        tp = mesh.shape.get("model", 1)
+        flops, accessed, coll = full["flops"] / tp, \
+            full["bytes_accessed"] / tp, None
+        notes.append(WHOLE_WIDTH_NOTE.format(refused))
+    else:
+        flops, accessed = ranked["flops"], ranked["bytes_accessed"]
+        coll = ranked["collective_bytes"]
+        for kind in ranked["other_kinds"]:
+            notes.append(f"collective_bytes[{kind!r}]: a c10d collective "
+                         f"with no name in the reference's HLO")
+    temp = ranked["temp"]
+    trace_s = ranked["seconds"]
+    if full is not None and full is not ranked:
+        trace_s += full["seconds"]
     rec = {
         "arch": cfg.name, "shape": shape.name, "mesh": _mesh_name(mesh),
         "status": "ok",
         "lower_s": round(time.perf_counter() - t0, 1), "compile_s": None,
         "flops": float(flops),
-        "bytes_accessed": None,
+        "bytes_accessed": float(accessed),
         "per_device": {
             "argument_bytes": args_b,
             "output_bytes": out_b,
-            "temp_bytes": int(temp),
-            "peak_bytes": args_b + int(temp),
+            "temp_bytes": temp,
+            "peak_bytes": args_b + temp,
         },
-        "collective_bytes": {},
+        "collective_bytes": coll,
         "trace": {"rows": rows, "microbatches": n_mb,
-                  "units": units_traced, "n_units": n_units,
+                  "units": ranked["units"], "n_units": stack_plan(cfg)[2],
+                  "per_rank": refused is None,
+                  **{k: v for k, v in _whole_width(full).items()
+                     if k != "seconds"},
                   "seconds": round(trace_s, 1)},
-        "notes": [NOTES],
+        "notes": notes,
     }
     if verbose:
         pd = rec["per_device"]
         print(f"  [{rec['mesh']}] {cfg.name} x {shape.name}: "
               f"flops={rec['flops']:.3e} "
+              f"accessed={_fmt_bytes(rec['bytes_accessed'])} "
               f"args={_fmt_bytes(pd['argument_bytes'])} "
               f"temp={_fmt_bytes(pd['temp_bytes'])} "
+              f"(full width {full and _fmt_bytes(full['temp'])}) "
               f"peak={_fmt_bytes(pd['peak_bytes'])} "
-              f"(trace {trace_s:.1f}s, units {units_traced})", flush=True)
+              f"collectives={coll} per_rank={refused is None} "
+              f"(trace {trace_s:.1f}s, units {ranked['units']})",
+              flush=True)
     return rec
 
 
-def real_step(cfg, shape, *, microbatches: int = 1, steps: int = 4,
-              seed: int = 0) -> Dict[str, Any]:
-    """The check of a record against the card: ``cfg``'s bf16 parameters
-    (from ``seed``) built on the card (the port's default engine) with
-    what the step of ``shape`` takes, then ``steps`` real steps, the
-    first a warm-up. Decode: the decode states, ``token`` and
-    ``position`` and greedy steps through ``make_serve_step``. Train:
-    AdamW's float32 state, a batch of random tokens, and steps of
-    ``make_train_step`` over ``microbatches`` with remat, the parameters
-    bf16 as the record takes them.
+def _random_batch(cfg, shape, gen: torch.Generator, dev) -> Dict[str, Any]:
+    """A whole batch of ``shape``'s inputs from ``gen``: random tokens
+    (and labels), random patches or frames."""
+    return {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                             generator=gen, dtype=v.dtype, device=dev)
+            if v.dtype == torch.int32 else
+            torch.randn(tuple(v.shape), generator=gen, device=dev
+                        ).to(v.dtype)
+            for k, v in input_specs(cfg, shape).items()}
 
-    Returns ``argument_bytes`` (the bytes of those tensors),
-    ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over every step
-    above what the device held before the tensors were built),
-    ``temp_bytes`` (the most a step after the warm-up allocated above
-    what was live when it started: what the warm-up leaves held, such as
-    cuBLAS's workspace, is not the step's), ``ms`` (the median of the
-    steps after the first, by CUDA events), ``step_ms`` (each step's)
-    and ``outputs`` (each step's next tokens, or ``[loss]``)."""
+
+def real_step(cfg, shape, *, microbatches: int = 1, steps: int = 4,
+              seed: int = 0, mesh: Optional[Mesh] = None,
+              device: Optional[str] = None) -> Dict[str, Any]:
+    """The check of a record against real steps: ``cfg``'s bf16
+    parameters (from ``seed``) with what the step of ``shape`` takes,
+    then ``steps`` real steps, the first a warm-up. Decode: the decode
+    states, ``token`` and ``position`` and greedy steps through
+    ``make_serve_step``. Prefill: a random batch through
+    ``make_prefill``. Train: AdamW's float32 state, a batch of random
+    tokens, and steps of ``make_train_step`` over ``microbatches`` with
+    remat, the parameters bf16 as the record takes them.
+
+    ``mesh``: this rank's mesh under a running process group
+    (``make_host_mesh``); the tensors are then this rank's shards
+    (``model.init(..., mesh=mesh)``, ``init_decode_state(..., mesh=mesh)``,
+    the train step's ``init_fn``) and the steps the sharded ones, which
+    every rank runs together. ``device``: None for the card (the port's
+    default engine), ``"cpu"`` for the host.
+
+    Returns ``argument_bytes`` (this rank's: the bytes of those tensors,
+    the batch's rows as ``batch_shardings`` gives them to the rank),
+    ``peak_bytes`` (on the card ``torch.cuda.max_memory_allocated`` over
+    every step above what the device held before the tensors were
+    built; on the host the arguments plus the most live above them in
+    any step, by :class:`StepTrace`), ``temp_bytes`` (on the card the
+    most a step after the warm-up allocated above what was live when it
+    started: what the warm-up leaves held, such as cuBLAS's workspace,
+    is not the step's; on the host the least of the steps after the
+    warm-up, each its most live above its arguments, since gloo's
+    worker thread may let go of a collective's buffers after the step
+    has moved on), ``flops`` (``FlopCounterMode``'s count of the warm-up
+    step), ``collective_bytes`` (what ``repro_torch.dist``'s collectives
+    moved in the last step, by kind, counted in the wrappers,
+    independently of the trace), ``ms`` (the median of the steps after
+    the first, by CUDA events on the card, the host clock on the host),
+    ``step_ms`` (each step's) and ``outputs`` (each step's next tokens,
+    or ``[loss]``)."""
     if steps < 2:
         raise ValueError(f"steps must be >= 2 (a warm-up, then the "
                          f"measured), got {steps}")
-    if shape.kind not in ("decode", "train"):
-        raise ValueError(f"{shape.name} is a {shape.kind} shape; the card "
-                         f"check runs decode and train cells")
-    model = build_model(cfg, remat=shape.kind == "train")
+    if device not in (None, "cpu"):
+        raise ValueError(f"device {device!r}: None (the card) or 'cpu'")
+    engine = Engine("torch:device=cpu") if device == "cpu" else None
+    model = build_model(cfg, remat=shape.kind == "train", engine=engine)
     dev = model.device
-    torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
+    on_card = dev.type == "cuda"
+    where = mesh if mesh is not None else abstract_mesh((1, 1),
+                                                        ("data", "model"))
+    if on_card:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
     b = shape.global_batch
+    gen = torch.Generator(device=dev).manual_seed(seed)
     if shape.kind == "decode":
-        params = model.init(seed, torch.bfloat16)
-        states = model.init_decode_state(b, shape.seq_len, torch.bfloat16)
+        params = model.init(seed, torch.bfloat16, mesh=mesh)
+        states = model.init_decode_state(b, shape.seq_len, torch.bfloat16,
+                                         mesh=mesh)
         token = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         position = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-        held = (params, states, token, position)
-        serve, _ = make_serve_step(model)
+        batch = {"token": token, "position": position}
+        serve, _ = make_serve_step(model, mesh)
+        placed = (params, states)
 
         def run(i: int):
             nonlocal states, token
             token, states = serve(params, states, token, position + i)
             return token
+    elif shape.kind == "prefill":
+        params = model.init(seed, torch.bfloat16, mesh=mesh)
+        batch = _random_batch(cfg, shape, gen, dev)
+        prefill, _ = make_prefill(model, mesh)
+        placed = (params,)
+
+        def run(i: int):
+            return prefill(params, batch)
     else:
-        train, init_fn, _ = make_train_step(model, AdamWConfig(),
+        train, init_fn, _ = make_train_step(model, AdamWConfig(), mesh,
                                             microbatches=microbatches)
         params, opt, _ = init_fn(seed, torch.bfloat16)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        batch = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
-                                  generator=gen, dtype=v.dtype, device=dev)
-                 if v.dtype == torch.int32 else
-                 torch.randn(tuple(v.shape), generator=gen, device=dev
-                             ).to(v.dtype)
-                 for k, v in input_specs(cfg, shape).items()}
-        held = (params, opt, batch)
+        batch = _random_batch(cfg, shape, gen, dev)
+        placed = (params, opt)
 
         def run(i: int):
             nonlocal params, opt
             params, opt, _, metrics = train(params, opt, None, batch)
             return metrics["loss"]
-    allocated = sum(x.numel() * x.element_size() for x in tree_leaves(held))
-    del held
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    times, outputs = [], []
-    peak = before = 0
+
+    def held():
+        if shape.kind == "decode":
+            return params, states, token, position
+        return (params, batch) if shape.kind == "prefill" else \
+            (params, opt, batch)
+    allocated = sum(_nbytes(x) for x in tree_leaves(placed)) + _tree_bytes(
+        where, batch, batch_shardings(where, batch))
+    del placed
+    times, outputs, temps = [], [], []
+    flops, peak, before = 0, 0, 0
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     for i in range(steps):
-        if i == 1:
+        if on_card and i == 1:
             peak = torch.cuda.max_memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             before = torch.cuda.memory_allocated(dev)
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        out = run(i)
-        ev1.record()
-        torch.cuda.synchronize(dev)
-        times.append(ev0.elapsed_time(ev1))
+        if i == steps - 1:
+            dist.reset_collective_bytes()
+        counter = FlopCounterMode(display=False) if i == 0 else None
+        live = None if on_card else StepTrace(held())
+        t0 = time.perf_counter()
+        if on_card:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        with counter or contextlib.nullcontext(), \
+                live or contextlib.nullcontext():
+            out = run(i)
+            if live is not None:
+                live.mark()
+        if on_card:
+            ev1.record()
+            torch.cuda.synchronize(dev)
+            times.append(ev0.elapsed_time(ev1))
+        else:
+            times.append((time.perf_counter() - t0) * 1e3)
+            temps.append(max(live.peaks) - live.args_bytes)
+            del live
+        if counter is not None:
+            flops = counter.get_total_flops()
         outputs.append(out.flatten().tolist())
-    high = torch.cuda.max_memory_allocated(dev)
-    return {"argument_bytes": allocated,
-            "peak_bytes": max(peak, high) - base,
-            "temp_bytes": high - before,
+    moved = dist.collective_bytes()
+    if on_card:
+        high = torch.cuda.max_memory_allocated(dev)
+        peak_b, temp_b = max(peak, high) - base, high - before
+    else:
+        # gloo's worker thread can let go of a collective's buffers after
+        # the step has moved on, which adds to a step's live bytes at
+        # random and never takes from them: the least measured step
+        peak_b, temp_b = allocated + max(temps), min(temps[1:])
+    return {"argument_bytes": allocated, "peak_bytes": peak_b,
+            "temp_bytes": temp_b, "flops": flops,
+            "collective_bytes": moved,
             "ms": statistics.median(times[1:]), "step_ms": times,
             "outputs": outputs}
 
@@ -667,6 +1028,10 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="dryrun_results.json")
+    ap.add_argument("--rank-only", action="store_true",
+                    help="skip the whole-width trace kept beside each "
+                         "rank's for comparison (trace.full_width_* null; "
+                         "half the trace time)")
     ap.add_argument("--device", default=None, choices=("cpu",),
                     help="cpu: run on the host against the stated capacity "
                          f"of an {H100_NAME}; default: the card's memory")
@@ -688,7 +1053,8 @@ def main(argv=None) -> None:
     for arch, shp in cells:
         for mp in meshes:
             try:
-                rec = lower_cell(arch, shp, multi_pod=mp)
+                rec = lower_cell(arch, shp, multi_pod=mp,
+                                 full_width=not args.rank_only)
                 if rec["status"] == "ok":
                     peak = rec["per_device"]["peak_bytes"]
                     rec["card"] = {"name": name, "memory_bytes": capacity,

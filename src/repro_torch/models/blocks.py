@@ -32,8 +32,9 @@ Megatron's layout, which is what GSPMD makes of the partition rules
   heads, the out-projection row-parallel, then the sum over ranks; the
   decode state is this rank's shard of the KV cache as
   ``state_shardings`` places it: its KV heads, or, where the KV heads do
-  not split over the axis, its slots of the sequence (attention then
-  combines the ranks' partial softmaxes,
+  not split over the axis, its slots of the sequence for every KV head
+  (the new entries of the heads other ranks compute are gathered, and
+  attention combines the ranks' partial softmaxes,
   :func:`repro_torch.models.attention.decode_attend_split`);
 * the MLPs: w1/w3 column-parallel, w2 row-parallel, at the block's own
   width (a dense block inside a MoE stack, the shared experts);
@@ -364,20 +365,51 @@ def _pad_seq(x, n):
 def _seq_split(cfg: ModelConfig, tp, cache_k: torch.Tensor):
     """``tp`` when this rank's cache shard ``cache_k`` (B, T_l, H_l, D)
     holds a slice of the sequence (``state_shardings``' branch for KV
-    heads that do not split over the model axis), None when it holds a
-    slice of the KV heads or there is no model axis. Raises when this
-    rank's KV heads (:func:`_tp_heads`) are not its shard's."""
+    heads that do not split over the model axis: every KV head), None
+    when it holds a slice of the KV heads or there is no model axis.
+    Raises when the shard holds other KV heads than this rank computes
+    (:func:`_tp_heads`), or a slice of the sequence without every
+    head."""
     if tp is None:
         return None
-    heads = cfg.n_kv_heads % tp.size == 0
     hl = cache_k.shape[-2]
-    shard = (tp.index * hl if heads else 0, hl)
+    if cfg.n_kv_heads % tp.size:
+        if hl != cfg.n_kv_heads:
+            raise ValueError(f"{cfg.name}: a cache shard split over the "
+                             f"sequence holds {hl} of {cfg.n_kv_heads} KV "
+                             f"heads")
+        return tp
     mine = _tp_heads(cfg, tp)[2:]
-    if mine != shard:
+    if mine != (tp.index * hl, hl):
         raise ValueError(f"{cfg.name}: rank {tp.index} of {tp.size} computes "
                          f"KV heads [{mine[0]}, {sum(mine)}), its cache "
-                         f"shard holds [{shard[0]}, {sum(shard)})")
-    return None if heads else tp
+                         f"shard holds [{tp.index * hl}, "
+                         f"{(tp.index + 1) * hl})")
+    return None
+
+
+def _every_kv_head(cfg: ModelConfig, k, v, tp):
+    """``k``/``v`` (B, S, hk, D) of this rank's KV heads made whole over
+    the heads, for a cache split over the sequence: a rank computes only
+    the KV heads of its query heads, so where those are fewer than every
+    head (several ranks share one KV group) the ranks' heads are
+    gathered and the first rank that computes a head gives it."""
+    hk = k.shape[2]
+    if hk == cfg.n_kv_heads:
+        return k, v
+    kv = dist.all_gather(torch.cat([k, v], dim=-1), tp.group, dim=2)
+    g = cfg.n_heads // cfg.n_kv_heads
+    hq = cfg.n_heads // tp.size
+    first = {}
+    for r in range(tp.size):           # rank r computes heads k0, k0 + hk
+        k0 = r * hq // g
+        for j in range(hk):
+            first.setdefault(k0 + j, r * hk + j)
+    idx = torch.tensor([first[h] for h in range(cfg.n_kv_heads)],
+                       device=k.device)
+    kv = kv.index_select(2, idx)
+    d = k.shape[-1]
+    return kv[..., :d], kv[..., d:]
 
 
 def _prefill_cache(cache, k, v, split):
@@ -415,6 +447,8 @@ def _self_attend(cfg: ModelConfig, q, k, v, state, mode: str, tp, *,
         o = attend(q, k, v, causal=(mode != "encode"), window=window,
                    cap=cfg.softcap_attn)
         if state is not None and fill:     # prefill: leave the KV behind
+            if split is not None:
+                k, v = _every_kv_head(cfg, k, v, split)
             new_state = dict(state)
             new_state["self"] = _prefill_cache(state["self"], k, v, split)
     else:
@@ -423,6 +457,7 @@ def _self_attend(cfg: ModelConfig, q, k, v, state, mode: str, tp, *,
             o, cache = decode_attend(q, cache, k, v, window=window,
                                      cap=cfg.softcap_attn)
         else:
+            k, v = _every_kv_head(cfg, k, v, split)
             o, cache = decode_attend_split(q, cache, k, v, split.group,
                                            split.index, split.size,
                                            window=window,

@@ -12,9 +12,11 @@ sharded.
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault import RetryingRunner, StragglerWatch, elastic_remesh
 from .sharding import batch_shardings, param_shardings, state_shardings
-from .step import make_prefill, make_serve_step, make_train_step
+from .step import (TrainParts, make_prefill, make_serve_step,
+                   make_train_parts, make_train_step)
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill",
+__all__ = ["make_train_step", "make_train_parts", "TrainParts",
+           "make_serve_step", "make_prefill",
            "param_shardings", "batch_shardings", "state_shardings",
            "save_checkpoint", "restore_checkpoint", "latest_step",
            "RetryingRunner", "StragglerWatch", "elastic_remesh"]

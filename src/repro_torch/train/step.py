@@ -24,7 +24,7 @@ stacked unit is also rematerialised in backward.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +39,8 @@ from repro_torch.tree import tree_flatten, tree_leaves
 from .sharding import (shard_shape, spec_axes, spec_leaves,
                        train_state_specs)
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill",
+__all__ = ["make_train_step", "make_train_parts", "TrainParts",
+           "make_serve_step", "make_prefill",
            "greedy_token", "batch_rows", "gather_rows"]
 
 
@@ -84,6 +85,60 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
       tensors on the model's device.
     * ``jit_for(params, batch)`` returns ``train_step``.
     """
+    parts = make_train_parts(model, opt_cfg, mesh, microbatches=microbatches,
+                             compress_grads=compress_grads)
+
+    def train_step(params, opt_state, residual, batch):
+        acc = parts.accumulator(params, held=False)
+        total = None
+        for one in parts.rows_of(batch):
+            loss = parts.microbatch(params, one, acc)
+            total = loss if total is None else total + loss
+        return parts.finish(params, opt_state, residual, acc, total)
+
+    def jit_for(params_like, batch_like):
+        return train_step
+    return train_step, parts.init_fn, jit_for
+
+
+class TrainParts(NamedTuple):
+    """:func:`make_train_step`'s step in the parts that it runs once a
+    microbatch and once a step, so that the dry-run can trace one
+    microbatch and the step's end of the very same code.
+
+    * ``init_fn``: as :func:`make_train_step` describes it.
+    * ``rows_of(batch)``: this rank's rows of each microbatch of the
+      whole global batch, in turn.
+    * ``accumulator(params, held=True)``: the gradient sums, one a leaf:
+      with ``held``, float32 zeros shaped as each reduced gradient (the
+      ZeRO-1 shard where ``data`` splits it), what a step of more than
+      one microbatch holds when a microbatch after the first starts; else
+      a list of None, the first microbatch's.
+    * ``microbatch(params, one, acc, on_loss=None, on_grads=None)``: the
+      loss and gradients of the rows ``one``, each gradient reduced over
+      the data axes (reduce-scatter over ``data`` into its ZeRO-1 shard,
+      or an all-reduce where no dimension divides; all-reduce over
+      ``pod``) and added into ``acc`` in place, a leaf at a time;
+      returns the detached loss. ``on_loss(loss)`` is called before the
+      backward and ``on_grads()`` after it (the dry-run's phases).
+    * ``finish(params, opt_state, residual, acc, total)``: the step's
+      end: the loss summed over the data ranks, the sums scaled by
+      ``1 / microbatches``, error feedback, AdamW on this rank's ZeRO-1
+      slices and their all-gather back into ``params``; returns what
+      :func:`make_train_step`'s ``train_step`` does."""
+
+    init_fn: Any
+    rows_of: Any
+    accumulator: Any
+    microbatch: Any
+    finish: Any
+
+
+def make_train_parts(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
+                     microbatches: int = 1,
+                     compress_grads: bool = False) -> TrainParts:
+    """The :class:`TrainParts` of :func:`make_train_step` over
+    ``mesh``."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     mesh = _mesh_of_ranks(mesh)
@@ -119,6 +174,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
             lo = i * size + dp.index * mine
             yield {k: v[lo:lo + mine] for k, v in batch.items()}
 
+    def accumulator(params, held=True):
+        if not held:
+            return [None] * len(plan)
+        dev = tree_leaves(params)[0].device
+        return [torch.zeros(shard_shape(mesh, leaf.shape, leaf.zspec),
+                            dtype=torch.float32, device=dev)
+                for leaf in plan]
+
     def reduce_grad(g, leaf):
         if dp.group is None:
             return g
@@ -130,36 +193,30 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
                 g = dist.all_reduce(g.contiguous(), data.group)
         return dist.all_reduce(g.contiguous(), pod.group)
 
-    def grads_microbatched(params, batch):
-        leaves, treedef = tree_flatten(params)
-        total = None
-        acc = [None] * len(leaves)
-        for one in rows_of(batch):
-            loss = model.loss(params, one, mesh)
-            grads = list(torch.autograd.grad(loss, leaves))
-            total = loss.detach() if total is None else total + loss.detach()
-            del loss    # its graph goes before the next microbatch's forward
-            for k, leaf in enumerate(plan):
-                g = reduce_grad(grads[k], leaf)
-                grads[k] = None     # no whole gradient past its reduction
-                if microbatches == 1:
-                    acc[k] = g
-                elif acc[k] is None:    # 0 + g: the first sum is g itself
-                    acc[k] = g.to(torch.float32)
-                else:
-                    # Out of place: autograd may hand one tensor to two
-                    # leaves, or an expanded one, so its outputs are not
-                    # written; each old sum is freed as it is replaced.
-                    acc[k] = acc[k] + g
-            del grads, g    # not held through the next microbatch's backward
-        if dp.group is not None:
-            total = dist.all_reduce(total.clone(), dp.group)
-        if microbatches > 1:
-            inv = 1.0 / microbatches
-            for k in range(len(acc)):
-                acc[k] = acc[k] * inv
-            total = total * inv
-        return total, treedef.unflatten(acc)
+    def microbatch(params, one, acc, on_loss=None, on_grads=None):
+        leaves = tree_leaves(params)
+        loss = model.loss(params, one, mesh)
+        if on_loss is not None:
+            on_loss(loss)
+        grads = list(torch.autograd.grad(loss, leaves))
+        out = loss.detach()
+        del loss    # its graph goes before the next microbatch's forward
+        if on_grads is not None:
+            on_grads()
+        for k, leaf in enumerate(plan):
+            g = reduce_grad(grads[k], leaf)
+            grads[k] = None     # no whole gradient past its reduction
+            if microbatches == 1:
+                acc[k] = g
+            elif acc[k] is None:    # 0 + g: the first sum is g itself
+                acc[k] = g.to(torch.float32)
+            else:
+                # Out of place: autograd may hand one tensor to two
+                # leaves, or an expanded one, so its outputs are not
+                # written; each old sum is freed as it is replaced.
+                acc[k] = acc[k] + g
+        del grads, g    # not held through the next microbatch's backward
+        return out
 
     @torch.no_grad()
     def zero1_slices(params):
@@ -180,8 +237,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
             if s is not p:
                 p.copy_(dist.all_gather(s, data.group, dim=leaf.zdim))
 
-    def train_step(params, opt_state, residual, batch):
-        loss, grads = grads_microbatched(params, batch)
+    def finish(params, opt_state, residual, acc, total):
+        if dp.group is not None:
+            total = dist.all_reduce(total.clone(), dp.group)
+        if microbatches > 1:
+            inv = 1.0 / microbatches
+            for k in range(len(acc)):
+                acc[k] = acc[k] * inv
+            total = total * inv
+        grads = tree_flatten(params)[1].unflatten(acc)
+        del acc[:]
         if compress_grads:
             grads, residual = ef_compress_tree(grads, residual, mesh=mesh,
                                                axes=axes)
@@ -190,12 +255,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None, *,
                                              slices, mesh=mesh, axes=axes)
         del grads
         gather_slices(params, slices)
-        metrics["loss"] = loss
+        metrics["loss"] = total
         return params, opt_state, residual, metrics
 
-    def jit_for(params_like, batch_like):
-        return train_step
-    return train_step, init_fn, jit_for
+    return TrainParts(init_fn, rows_of, accumulator, microbatch, finish)
 
 
 class _Leaf(NamedTuple):

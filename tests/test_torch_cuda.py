@@ -765,7 +765,7 @@ def test_dryrun_predicts_card_peak(card):
 
 def test_dryrun_predicts_card_train_peak(card):
     """A train record: qwen3-8b at full width cut to 4 layers (its units
-    traced at 2 and 3 and extrapolated), 2 sequences of 512 tokens in 2
+    traced at 2, 3 and 4 and extrapolated), 2 sequences of 512 tokens in 2
     microbatches, bf16 parameters and float32 AdamW state, against real
     ``make_train_step`` steps on the card: exact argument bytes, peak and
     temp bytes each within 10%."""
@@ -773,5 +773,5 @@ def test_dryrun_predicts_card_train_peak(card):
     cfg = get_config("qwen3-8b").scaled(n_layers=4)
     rec, real = _dryrun_against_card(
         cfg, ShapeSpec("train_512", 512, 2, "train"), microbatches=2)
-    assert rec["trace"]["units"] == [2, 3]
+    assert rec["trace"]["units"] == [2, 3, 4]
     assert np.all(np.isfinite(real["outputs"]))

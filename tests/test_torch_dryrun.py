@@ -253,10 +253,13 @@ SMOKE_SHAPES = {"train": ShapeSpec("train_s", 32, 4, "train"),
     ("recurrentgemma-9b", "prefill", 1), ("rwkv6-7b", "prefill", 1),
     ("pixtral-12b", "prefill", 1), ("qwen3-8b", "flash", 1)])
 def test_extrapolation_matches_full_depth(arch, kind, microbatches):
-    """Traces at 2 and 3 stacked units, extrapolated to 5: FLOPs and
-    the peak of live bytes (each phase's extrapolated, the largest
-    taken) equal the full-depth trace's, exactly; ``flash`` is a prefill
-    long enough for the blockwise attention."""
+    """Traces at 2 and 3 stacked units, extrapolated to 5: FLOPs,
+    bytes accessed (train's through 2, 3 and 4 units; as the whole trace
+    and as the step's end), no collectives on one device, and the peak
+    of live bytes (each phase's extrapolated, the largest taken) equal
+    the full-depth trace's, exactly; ``flash`` is a prefill long enough
+    for the blockwise attention. ``tests/test_torch_dryrun_sharded.py``
+    does the same on a rank of (1, 2)."""
     cfg = _deep_smoke(arch)
     shape = (ShapeSpec("flash_s", 2560, 1, "prefill") if kind == "flash"
              else SMOKE_SHAPES[kind])
@@ -273,6 +276,22 @@ def test_extrapolation_matches_full_depth(arch, kind, microbatches):
     assert temp == full["peak_bytes"] - full["args_bytes"]
     assert len(full["peaks"]) == len(two["peaks"]) == (
         4 + (microbatches > 1) if kind == "train" else 1)
+    # train's bytes accessed grow with the square of the depth (each
+    # unit's gradient is a select's backward over the whole stacked
+    # leaf): the parabola through 2, 3 and 4 units
+    four = (dryrun.trace_step(cfg, shape, rows, units=4,
+                              microbatches=microbatches)
+            if kind == "train" else None)
+    for got, want in ((dryrun._counts_at(two, three, 5, four), full),
+                      (dryrun._counts_at(two["step"], three["step"], 5,
+                                         four and four["step"]),
+                       full["step"])):
+        assert got == {"flops": want["flops"],
+                       "bytes_accessed": want["bytes_accessed"],
+                       "collective_bytes": want["collective_bytes"]}
+    assert two["bytes_accessed"] < three["bytes_accessed"] < \
+        full["bytes_accessed"]
+    assert full["collective_bytes"] == {}
 
 
 def _real_step(cfg, kind, shape, seed=0):
@@ -454,13 +473,19 @@ DECODE_CELLS = [(a, s.name) for a, s in _cells() if s.kind == "decode"]
 
 @pytest.mark.parametrize("arch,shape_name", DECODE_CELLS)
 def test_decode_flops_match_analytic(arch, shape_name):
-    """The decode cells at full config on 16 x 16: ``flops`` x the
-    model-axis size x the ways the batch splits over the data axes (1
-    where it is replicated, as ``long_500k``'s single sequence is)
-    within 1% of ``benchmarks.analytic.analytic_flops``. For whisper the
-    closed form also needs what its decoder does each step in both
-    packages: the cross-attention keys, values and scores over all the
-    encoder's frames."""
+    """The decode cells at full config on 16 x 16: the whole-width
+    step's FLOPs (``trace.full_width_flops``, one device's rows) x the
+    ways the batch splits over the data axes (1 where it is replicated,
+    as ``long_500k``'s single sequence is) within 1% of
+    ``benchmarks.analytic.analytic_flops``. For whisper the closed form
+    also needs what its decoder does each step in both packages: the
+    cross-attention keys, values and scores over all the encoder's
+    frames. The record's ``flops`` is rank 0's own count: at least its
+    share of the whole width over the 16-way model axis (what the ranks
+    compute twice, such as a KV head that two ranks' query heads share,
+    and the MoE's balanced routing, whose remainder goes to rank 0's
+    experts, come on top), exactly that share where the heads do not
+    split (whisper-small's record keeps the whole-width trace)."""
     rec = dryrun.lower_cell(arch, shape_name, verbose=False)
     assert rec["status"] == "ok" and rec["trace"]["units"] == "all"
     cfg = get_config(arch)
@@ -471,20 +496,30 @@ def test_decode_flops_match_analytic(arch, shape_name):
         b, f = shape.global_batch, cfg.enc_frames
         want += cfg.n_layers * 4 * b * f * (cfg.d_model * cfg.kv_dim
                                             + cfg.q_dim)
-    ratio = rec["flops"] * 16 * ways / want
+    whole = rec["trace"]["full_width_flops"]
+    ratio = whole * ways / want
     assert 0.99 <= ratio <= 1.01, ratio
+    if rec["trace"]["per_rank"]:
+        assert rec["flops"] * 16 >= whole
+    else:
+        assert rec["flops"] == whole / 16
 
 
 def test_moe_cell_traces():
-    """A MoE cell traces under the fake trace's balanced routing:
-    deepseek-moe-16b x decode_32k at full config on the multi-pod mesh
-    (4 rows a device, 64 experts, top-6)."""
+    """A MoE cell traces rank 0's sharded step under the fake trace's
+    balanced routing: deepseek-moe-16b x decode_32k at full config on the
+    multi-pod mesh (4 rows a device, 64 experts over 16 model ranks,
+    top-6), with the counts of the reference's keys."""
     rec = dryrun.lower_cell("deepseek-moe-16b", "decode_32k",
                             multi_pod=True, verbose=False)
     assert rec["status"] == "ok" and rec["mesh"] == "2x16x16"
     assert rec["trace"]["rows"] == 4 and rec["flops"] > 0
-    assert rec["compile_s"] is None and rec["collective_bytes"] == {}
-    assert rec["bytes_accessed"] is None and len(rec["notes"]) == 1
+    assert rec["trace"]["per_rank"] is True
+    assert rec["compile_s"] is None and rec["bytes_accessed"] > 0
+    assert rec["collective_bytes"] and set(rec["collective_bytes"]) <= {
+        "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    assert rec["notes"] == [dryrun.NOTES]
 
 
 def test_train_record_with_more_microbatches_than_rows():
@@ -498,8 +533,10 @@ def test_train_record_with_more_microbatches_than_rows():
     shape = ShapeSpec("train_s", 32, 256, "train")
     rec = dryrun.cell_record(cfg, shape, make_production_mesh(
         multi_pod=True), microbatches=16)
+    # four smoke heads do not split 16 ways: the whole-width record
+    assert rec["trace"]["per_rank"] is False
     assert rec["trace"] == {**rec["trace"], "rows": 1, "microbatches": 8,
-                            "units": [2, 3], "n_units": 5}
+                            "units": [2, 3, 4], "n_units": 5}
     full = dryrun.trace_step(cfg, shape, 1, microbatches=8)
     assert rec["flops"] == full["flops"] * 8 / 16
     assert rec["per_device"]["temp_bytes"] == \
