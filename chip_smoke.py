@@ -174,6 +174,12 @@ and raises on any failure. Phases, one line each:
     temp within 10%; step
     milliseconds printed as what they are: two ranks time-slicing one
     card, every collective through gloo on the host;
+Phases 26, 28, 29 and 31 run all of a phase's sharded runs in one launch
+of the ranks (this script's rank entry ``--launches`` under ``python -m
+torch.distributed.run``: the launchers' ``main`` in turn in one process
+group, the memory freed and the peak statistics and the kernels'
+launch counts set to 0 before each).
+
 26. ``train_sharded``: the training launcher under ``python -m
     torch.distributed.run --standalone --nproc-per-node 2`` with
     ``--dist-backend gloo``, both ranks on this one card (gloo's
@@ -229,18 +235,47 @@ and raises on any failure. Phases, one line each:
     one rank's, and the step times and tokens/s printed as what they
     are: two ranks sharing one card, every collective through gloo on
     the host;
-30. one JSON line describing each kernel;
-31. ``{"ok": true, "device": {...}}`` as the last line.
+30. ``fault_sharded``: a fault inside a sharded step (this script's
+    rank entry ``--fault-rank OUT --kill``, two processes started by the
+    phase with rank 0 holding the rendezvous store, so that a killed
+    rank 1 leaves it standing; the fault injector and the runner are the
+    CPU tests' own, ``tests/_torch_sharded_cases.py``). qwen3-8b at its
+    published width cut to 2 layers on (1, 2), two gloo ranks sharing
+    the card, ``RetryingRunner`` with checkpoints every 2 steps (12 B a
+    parameter), steps of 2 x 128 tokens: first the unfailed steps 0-4
+    without the runner and without a fence; (raise) the runner from the
+    same start, rank 1 raising between two all-reduces of step 3's
+    backward while rank 0 waits in one: both count one restart, restore
+    step 2 and replay steps 2 and 3, and the losses and final parameters
+    equal the unfailed run's exactly; (kill) a second runner from step
+    4, rank 1 SIGKILLed inside step 4's forward: rank 0 raises
+    ``RanksLost`` naming it, re-meshes alone (``elastic_remesh``, 1 x
+    1), restores step 4 and trains it within 1e-5 relative of the
+    unfailed loss. The recovery's seconds and the time to notice the
+    lost rank are printed beside the group timeout;
+31. ``tp_heads_whole``: whisper-small (12 heads) at full width on (1,
+    8), eight gloo ranks sharing the card (both launchers in one launch
+    of the ranks): a rank's 96 columns of each attention
+    projection cut a head, so every rank runs the attention over all
+    heads. Both launchers cut to 4 of 12 decoder and 4 of 12 encoder
+    layers: the serving launcher (4 tokens after a prompt of 32, tokens
+    equal to one rank's in this process, 0 recompiles on every rank),
+    then the training launcher (2 steps of 2 x 128 tokens: losses, lr
+    and grad norms within 1e-5 relative of one rank's); each rank's
+    peak printed beside one rank's;
+32. one JSON line describing each kernel;
+33. ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels' wrappers are set to 0 just before each
 path of phases 5, 6, 8, 10-13, 14's front door, 15's recording and
-replays and each run of 19, and read just after (28's and 29's runs
-(a) start fresh processes, whose counts start at 0, and their rank 0
-writes its count into the launcher's ``--summary``) (one K3 launch per
+replays and each run of 19, 28 and 29 (in the ranks' processes, before
+each launcher's ``main``), and read just after (rank 0 writes its count
+into the launcher's ``--summary``) (one K3 launch per
 ``use_pallas=True`` call, one K1 or K2 launch per fused pass, resident
 program pass or replayed EXEC); comparison launches of phases 3, 4, 7,
 12's timing, 14, 15's group tables and 16 do not count (17, 18 and
-20-27, 28's runs (b) and (c) and 29's (b) to (e) launch no kernel: the
+20-27, 28's runs (b) and (c), 29's (b) to (e), 30 and 31 launch no
+kernel: the
 model path takes the integer products with torch matmuls, as the
 reference takes them in XLA, training runs the
 float path, whose gradients the reference takes in XLA too, and the
@@ -406,12 +441,14 @@ DRYRUN_RANK_CELLS = (("recurrentgemma-9b", "long_500k"),)
 # ranks of phase 25, which run beside it).
 DRYRUN_WORKERS = 6
 # The sharded training slice: the launcher on two ranks sharing the card
-# (gloo) at qwen3-8b's published width, against one rank, as ((data,
-# model), layers). ZeRO-1 on (2, 1) moves every gradient and parameter
-# through gloo each step (about 50 s a step at 8 layers on the shared
-# card, PERF.md section 6): both meshes run cut to 2 layers, so that the
-# script keeps its time beside the dry-run's rank checks.
-TRAIN_SHARDED_MESHES = (((1, 2), 2), ((2, 1), 2))
+# (gloo) at qwen3-8b's published width, against one rank, on (data,
+# model) meshes. ZeRO-1 on (2, 1) moves every gradient and parameter through
+# gloo each step (about 50 s a step at 8 layers on the shared card,
+# PERF.md section 6): both meshes run cut to 2 layers, in one launch of
+# the ranks, so that the script keeps its time beside the dry-run's rank
+# checks.
+TRAIN_SHARDED_MESHES = ((1, 2), (2, 1))
+TRAIN_SHARDED_LAYERS = 2
 TRAIN_SHARDED_ARGS = ["--arch", "qwen3-8b", "--steps", "3", "--seq-len",
                       "1024", "--global-batch", "4", "--microbatches", "2"]
 TRAIN_SHARDED_LOSS_RTOL = 1e-5
@@ -444,6 +481,33 @@ TP_FAMILY_RUNS = (
     ("c", "serve", "rwkv6-7b", 4, TP_FAMILY_SERVE),
     ("d", "serve", "recurrentgemma-9b", 3, TP_FAMILY_SERVE),
     ("e", "serve", "whisper-small", None, TP_FAMILY_SERVE))
+# A fault inside a sharded step (the rank entry --fault-rank): qwen3-8b
+# at its published width cut to 2 layers on (1, 2), two gloo ranks
+# sharing the card, RetryingRunner with checkpoints every 2 steps, steps
+# of 2 x 128 tokens. Rank 1 raises inside step 3's backward (the run
+# "raise": steps 2 and 3 replayed from the checkpoint of step 2), then,
+# in a second run from step 4, is SIGKILLed inside step 4's forward (the
+# run "kill"). A checkpoint is 12 B a parameter (float32 parameters and
+# AdamW moments): the runs take two saves and three restores.
+FAULT_LAYERS = 2
+FAULT_STEP = 3                  # the raise, inside its backward
+FAULT_STEPS = FAULT_STEP + 2    # the unfailed run's; the kill in the last
+FAULT_DATA = dict(seq_len=128, global_batch=2)
+# Heads that the model axis does not split: whisper-small (12 heads of
+# 64, 768 columns) on (1, 8), eight gloo ranks sharing the card: a
+# rank's 96 columns of q, k and v cut a head, so every rank runs the
+# attention over all 12 heads, its activations whole on each of the
+# eight. Both launchers run in one launch of the eight ranks (the
+# script's rank entry), each cut to 4 of its 12 decoder and 4 of its 12
+# encoder layers (over its 1,500 frames): served 4 tokens after a
+# prompt of 32, trained 2 steps of 2 x 128 tokens (eight whole
+# attentions at full depth and batch do not fit one card's memory).
+TP_HEADS_WHOLE_RANKS = 8
+TP_HEADS_WHOLE_CUT = {"n_layers": 4, "enc_layers": 4}
+TP_HEADS_WHOLE_RUNS = (
+    ("serve", ["--batch", str(SERVE_BATCH), "--prompt-len",
+               str(SERVE_PROMPT), "--gen", "4"]),
+    ("train", ["--steps", "2", "--seq-len", "128", "--global-batch", "2"]))
 ELASTIC_ARGS = ["--arch", "deepseek-7b", "--smoke", "--model-parallel",
                 "2", "--survivors", "2", "--steps", "4", "--more", "3"]
 BUILD = Path(__file__).resolve().parent / "build"
@@ -2143,40 +2207,44 @@ def one_rank_run(args: list, layers: int) -> tuple:
 
 def train_sharded_phase(smi: str) -> None:
     """Phase 26: the launcher on meshes of two ranks sharing the card
-    against one rank in this process (see the module docstring)."""
+    (both in one launch of the ranks) against one rank in this process
+    (see the module docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import train_state_bytes
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models.model import abstract_params
     t_phase = time.perf_counter()
-    for (dp, tp), layers in TRAIN_SHARDED_MESHES:
-        args = TRAIN_SHARDED_ARGS + ["--override",
-                                     json.dumps({"n_layers": layers})]
-        cfg = get_config("qwen3-8b").scaled(n_layers=layers)
-        whole = abstract_params(cfg, torch.float32)
+    layers = TRAIN_SHARDED_LAYERS
+    args = TRAIN_SHARDED_ARGS + ["--override",
+                                 json.dumps({"n_layers": layers})]
+    cfg = get_config("qwen3-8b").scaled(n_layers=layers)
+    whole = abstract_params(cfg, torch.float32)
 
-        def count(mesh):
-            return train_state_bytes(cfg, abstract_mesh(mesh, ("data",
-                                                               "model")),
-                                     whole)
-        one, one_peak, one_s = one_rank_run(args, layers)
-        check(one.placed_bytes == [count((1, 1))],
-              f"train_sharded: one rank placed {one.placed_bytes}, the "
-              f"dry-run counts {count((1, 1))}")
-        check(len(one.losses) == 3 and all(np.isfinite(one.losses)),
-              f"train_sharded: one-rank losses {one.losses}")
-        phase("train_sharded", mesh="1x1", ranks=1, layers=layers,
-              losses=json.dumps(one.losses),
-              grad_norms=json.dumps(one.grad_norms),
-              lrs=json.dumps(one.lrs), placed_bytes=one.placed_bytes[0],
-              peak_bytes=one_peak, step_s=json.dumps(one.step_s),
-              wall_s=round(one_s, 1))
-        summary = BUILD / f"train_sharded_{dp}x{tp}.json"
-        wall = run_ranks(2, "repro_torch.launch.train", args + [
+    def count(mesh):
+        return train_state_bytes(cfg, abstract_mesh(mesh, ("data", "model")),
+                                 whole)
+    one, one_peak, one_s = one_rank_run(args, layers)
+    check(one.placed_bytes == [count((1, 1))],
+          f"train_sharded: one rank placed {one.placed_bytes}, the "
+          f"dry-run counts {count((1, 1))}")
+    check(len(one.losses) == 3 and all(np.isfinite(one.losses)),
+          f"train_sharded: one-rank losses {one.losses}")
+    phase("train_sharded", mesh="1x1", ranks=1, layers=layers,
+          losses=json.dumps(one.losses),
+          grad_norms=json.dumps(one.grad_norms),
+          lrs=json.dumps(one.lrs), placed_bytes=one.placed_bytes[0],
+          peak_bytes=one_peak, step_s=json.dumps(one.step_s),
+          wall_s=round(one_s, 1))
+    summaries = {m: BUILD / f"train_sharded_{m[0]}x{m[1]}.json"
+                 for m in TRAIN_SHARDED_MESHES}
+    wall = run_launches(2, [
+        ["repro_torch.launch.train", args + [
             "--model-parallel", str(tp), "--dist-backend", "gloo",
-            "--summary", str(summary)])
-        got = json.loads(summary.read_text())
-        summary.unlink()
+            "--summary", str(summaries[(dp, tp)])]]
+        for dp, tp in TRAIN_SHARDED_MESHES])
+    for dp, tp in TRAIN_SHARDED_MESHES:
+        got = json.loads(summaries[(dp, tp)].read_text())
+        summaries[(dp, tp)].unlink()
         name = f"{dp}x{tp}"
         check(got["mesh"] == {"data": dp, "model": tp},
               f"train_sharded: mesh {got['mesh']}")
@@ -2208,9 +2276,9 @@ def train_sharded_phase(smi: str) -> None:
               peak_bytes=json.dumps(got["peak_bytes"]),
               one_rank_peak=one_peak,
               step_s_shared_card=json.dumps(got["step_s"]),
-              wall_s=round(wall, 1), card=json.dumps(smi))
-    phase("train_sharded", seconds=round(time.perf_counter() - t_phase, 1))
-
+              card=json.dumps(smi))
+    phase("train_sharded", ranks_wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
 
 def elastic_card_phase() -> None:
     """Phase 27: the elastic schedule on 4 ranks sharing the card."""
@@ -2277,8 +2345,8 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
     check(not refused, f"serve_sharded: gloo refuses CUDA tensors for "
                        f"{refused}")
     k1 = 0
+    runs, launches = [], []
     for run_id, arch, layers, (dp, tp) in SERVE_SHARDED_RUNS:
-        t_run = time.perf_counter()
         cfg = get_config(arch)
         argv = ["--arch", arch, "--pim", "--pim-scope", "full",
                 "--batch", str(SERVE_BATCH), "--prompt-len",
@@ -2302,11 +2370,15 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
         trace = BUILD / f"serve_sharded_{run_id}_trace.json"
         summary = BUILD / f"serve_sharded_{run_id}.json"
         extra = ["--trace", str(trace)] if run_id == "a" else []
-        wall = run_ranks(2, "repro_torch.launch.serve", argv + extra + [
+        launches.append(["repro_torch.launch.serve", argv + extra + [
             "--model-parallel", str(tp), "--dist-backend", "gloo",
-            "--summary", str(summary)])
+            "--summary", str(summary)]])
+        runs.append((run_id, cfg, dp, tp, want, peak, summary, trace))
+    wall = run_launches(2, launches)
+    for run_id, cfg, dp, tp, want, peak, summary, trace in runs:
         got = json.loads(summary.read_text())
         summary.unlink()
+        k1_run = got["launches"]["K1"]
         spans = {}
         if trace.exists():          # rank 0's spans, the collectives' too
             for e in json.loads(trace.read_text())["traceEvents"]:
@@ -2335,9 +2407,9 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
               f"{got['state_bytes']}, the dry-run counts {p_bytes} and "
               f"{s_bytes}")
         if run_id == "a":
-            check(got["launches"]["K1"] >= 1 and got["launches"]["K2"] == 0,
+            check(k1_run >= 1 and got["launches"]["K2"] == 0,
                   f"serve_sharded a: rank 0 launched {got['launches']}")
-            k1 += got["launches"]["K1"]
+            k1 += k1_run
         phase("serve_sharded", run=run_id, mesh=name, ranks=2,
               arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
               kv_heads=cfg.n_kv_heads, pim_scope="full",
@@ -2345,7 +2417,7 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
                       "through the host)",
               tokens_equal=True, sample=json.dumps(got["tokens"][0]),
               recompiles=json.dumps(got["rank_recompiles"]),
-              k1_launches=got["launches"]["K1"],
+              k1_launches=k1_run,
               param_bytes=json.dumps(got["param_bytes"]),
               state_bytes=json.dumps(got["state_bytes"]),
               spec_count=json.dumps([p_bytes, s_bytes]),
@@ -2356,8 +2428,6 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
                   SERVE_BATCH * got["tokens_per_s"], 3),
               token_p50_us=round(got["token_p50_us"], 1),
               token_p99_us=round(got["token_p99_us"], 1),
-              wall_s=round(wall, 1),
-              seconds=round(time.perf_counter() - t_run, 1),
               card=json.dumps(smi))
         if spans:
             # Host seconds inside each gloo call on rank 0: the call
@@ -2367,14 +2437,15 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
                     spans.items(), key=lambda kv: -kv[1][1])
                  if k.startswith(("dist.", "serve."))}))
     obs.reset_trace()
-    phase("serve_sharded", seconds=round(time.perf_counter() - t_phase, 1))
+    phase("serve_sharded", ranks_wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
     return k1
-
 
 def tp_families_phase(smi: str) -> int:
     """Phase 29: the launchers on (1, 2) over two ranks sharing the card
-    for MoE, RWKV-6, RG-LRU and enc-dec, each against one rank in this
-    process (see the module docstring). Returns run a's K1 launches."""
+    (all runs in one launch of the ranks) for MoE, RWKV-6, RG-LRU and
+    enc-dec, each against a one-rank run in this process (see the module
+    docstring). Returns run a's K1 launches."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import (_tree_bytes, abstract_states,
@@ -2386,8 +2457,8 @@ def tp_families_phase(smi: str) -> int:
     backend = ("gloo (both ranks on one card, every collective through "
                "the host)")
     k1 = 0
+    runs, launches = [], []
     for run_id, kind, arch, layers, extra in TP_FAMILY_RUNS:
-        t_run = time.perf_counter()
         cfg = get_config(arch)
         argv = ["--arch", arch] + extra
         if layers is not None:
@@ -2431,9 +2502,14 @@ def tp_families_phase(smi: str) -> int:
               arch=cfg.name, layers=cfg.n_layers, peak_bytes=peak,
               **one_fields)
         traced = ["--trace", str(trace)] if run_id == "a" else []
-        wall = run_ranks(2, module, argv + traced + [
+        launches.append([module, argv + traced + [
             "--model-parallel", "2", "--dist-backend", "gloo",
-            "--summary", str(summary)])
+            "--summary", str(summary)]])
+        runs.append((run_id, kind, cfg, name, want, peak, spec_count,
+                     summary, trace))
+    wall = run_launches(2, launches)
+    for (run_id, kind, cfg, name, want, peak, spec_count, summary,
+         trace) in runs:
         got = json.loads(summary.read_text())
         summary.unlink()
         trace.unlink(missing_ok=True)
@@ -2469,15 +2545,15 @@ def tp_families_phase(smi: str) -> int:
                   == [[c] * 2 for c in spec_count],
                   f"{name}: placed {got['param_bytes']} and "
                   f"{got['state_bytes']}, the dry-run counts {spec_count}")
+            k1_run = got["launches"]["K1"]
             if run_id == "a":
-                check(got["launches"]["K1"] >= 1
-                      and got["launches"]["K2"] == 0,
+                check(k1_run >= 1 and got["launches"]["K2"] == 0,
                       f"{name}: rank 0 launched {got['launches']}")
-                k1 += got["launches"]["K1"]
+                k1 += k1_run
             fields.update(
                 tokens_equal=True, sample=json.dumps(got["tokens"][0]),
                 recompiles=json.dumps(got["rank_recompiles"]),
-                k1_launches=got["launches"]["K1"],
+                k1_launches=k1_run,
                 param_bytes=json.dumps(got["param_bytes"]),
                 state_bytes=json.dumps(got["state_bytes"]),
                 prefill_s_shared_card=round(got["prefill_s"], 4),
@@ -2490,12 +2566,314 @@ def tp_families_phase(smi: str) -> int:
               d_model=cfg.d_model, backend=backend, **fields,
               spec_count=json.dumps(spec_count),
               peak_bytes=json.dumps(got["peak_bytes"]),
-              one_rank_peak=peak, wall_s=round(wall, 1),
-              seconds=round(time.perf_counter() - t_run, 1),
-              card=json.dumps(smi))
+              one_rank_peak=peak, card=json.dumps(smi))
     obs.reset_trace()
-    phase("tp_families", seconds=round(time.perf_counter() - t_phase, 1))
+    phase("tp_families", ranks_wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
     return k1
+
+def fault_rank(out_dir: str, kill: bool) -> None:
+    """One rank of phase 30 (``--fault-rank OUT [--kill]``): its runs
+    (see ``FAULT_*``) on the card, in one gloo process group of the
+    world's ranks (the environment's ``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR`` and ``MASTER_PORT``, or ``python -m
+    torch.distributed.run`` without ``--kill``: its agent ends every
+    rank when one dies). Rank 0 writes ``rank0.json`` into ``out_dir``:
+    the unfailed losses, each run's steps and losses, restarts, recovery
+    seconds, whether the final parameters are equal, the lost ranks and
+    the losses after the re-mesh; the killed rank writes the wall time
+    of its kill into ``killed``."""
+    root = Path(__file__).resolve().parent
+    sys.path[:0] = [str(root / "src"), str(root / "tests")]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import _torch_sharded_cases as cases   # the CPU tests' injector, runner
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.engine import Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, restore_checkpoint
+    from repro_torch.train.fault import RanksLost, elastic_remesh
+    from repro_torch.train.sharding import train_state_specs
+    from repro_torch.tree import tree_leaves
+    dist.init_distributed("gloo")
+    try:
+        rank, world = dist.rank(), dist.world_size()
+        last = world - 1
+        dev = dist.local_device("cuda")
+        torch.cuda.set_device(dev)
+        cfg = get_config("qwen3-8b").scaled(n_layers=FAULT_LAYERS)
+        model = build_model(cfg, remat=True, engine=Engine())
+        opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=50)
+        raw = make_batch_fn(DataConfig(vocab_size=cfg.vocab_size,
+                                       **FAULT_DATA))
+
+        def batch_at(s):
+            return {k: torch.from_numpy(v).to(dev)
+                    for k, v in raw(s).items()}
+        mesh = make_host_mesh(world)
+        _, init_fn, jit_for = make_train_step(model, opt, mesh)
+        state = init_fn(0)
+        jit = jit_for(state[0], batch_at(0))
+        whole = []
+        for s in range(FAULT_STEPS):            # unfailed, no fence
+            *state, met = jit(*state, batch_at(s))
+            whole.append(float(met["loss"]))
+            if s == FAULT_STEP:
+                keep = [x.detach().clone() for x in tree_leaves(state[0])]
+        del state, met
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        seen, taken = [], {"step": -1}
+        real = dist.all_reduce
+        if rank == last:
+            dist.all_reduce, _ = cases._fault_in(
+                "backward", lambda: taken["step"], FAULT_STEP)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, metrics = cases._runner(
+            cfg, mesh, jit, ckpt_dir, batch_at, seen, taken).run(
+                init_fn(0), 0, FAULT_STEP + 1)
+        dist.all_reduce = real
+        out = {"whole": whole, "seen": seen, "restarts": metrics["restarts"],
+               "recovery_s": metrics["recovery_s"],
+               "wall_s": time.perf_counter() - t0,
+               "params_equal": all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(state[0]), keep)),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del keep
+        if kill:
+            taken["step"] = -1
+
+            def stamp():
+                with open(os.path.join(out_dir, "killed"), "w") as f:
+                    f.write(repr(time.time()))
+            if rank == last:
+                dist.all_reduce, _ = cases._fault_in(
+                    "kill", lambda: taken["step"], FAULT_STEP + 1,
+                    before_kill=stamp)
+            try:
+                cases._runner(cfg, mesh, jit, ckpt_dir, batch_at, [],
+                              taken).run(state, FAULT_STEP + 1, 1)
+            except RanksLost as e:
+                out.update(lost=list(e.ranks), error=str(e),
+                           noticed=time.time())
+            del state
+            torch.cuda.empty_cache()
+            check("lost" in out, f"the run went on without rank {last}")
+            survivors = elastic_remesh(list(range(last)),
+                                       model_parallel=world)
+            step2, init2, _ = make_train_step(model, opt, survivors)
+            params, opt_state, res = init2(0)
+            ps, os_, _ = train_state_specs(survivors, abstract_params(cfg))
+            t0 = time.perf_counter()
+            back, at = restore_checkpoint(
+                ckpt_dir, {"params": params, "opt": opt_state},
+                mesh=survivors, specs={"params": ps, "opt": os_})
+            out["restore_s"] = time.perf_counter() - t0
+            params, opt_state = back["params"], back["opt"]
+            after = []
+            for s in range(at, FAULT_STEPS):
+                params, opt_state, res, met = step2(params, opt_state, res,
+                                                    batch_at(s))
+                after.append([s, float(met["loss"])])
+            out.update(mesh=survivors.shape, restored=at, after=after)
+        if rank == 0:
+            with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def fault_sharded_phase(smi: str) -> None:
+    """Phase 30: a fault inside a sharded step, two processes of
+    :func:`fault_rank` sharing the card (see ``FAULT_*``)."""
+    import signal
+    import socket
+    from repro_torch import dist
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=BUILD) as out_dir:
+        procs = [subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--fault-rank",
+             out_dir, "--kill"], cwd=str(root),
+            env=dict(os.environ, OMP_NUM_THREADS="4", RANK=str(r),
+                     LOCAL_RANK=str(r), WORLD_SIZE="2",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=RANKS_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.communicate()
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            want = -signal.SIGKILL if r == 1 else 0
+            check(p.returncode == want, f"fault_sharded: rank {r} exited "
+                  f"{p.returncode}:\n{o[-2000:]}\n{e[-4000:]}")
+        got = json.loads((Path(out_dir) / "rank0.json").read_text())
+        killed_at = float((Path(out_dir) / "killed").read_text())
+        wall = time.perf_counter() - t_phase
+    whole, at = got["whole"], FAULT_STEP
+    # the failed step's loss is not kept; step 2 (done) and 3 replayed
+    want_seen = list(range(at)) + [at - 1, at]
+    check(got["restarts"] == 1 and [s for s, _ in got["seen"]] == want_seen,
+          f"fault_sharded raise: restarts {got['restarts']}, steps "
+          f"{got['seen']}")
+    check(all(loss == whole[s] for s, loss in got["seen"]),
+          f"fault_sharded raise: losses {got['seen']} against the "
+          f"unfailed {whole}")
+    check(got["params_equal"], "fault_sharded raise: the final parameters "
+                               "differ from the unfailed run's")
+    phase("fault_sharded", run="raise", arch="qwen3-8b",
+          layers=FAULT_LAYERS, mesh="1x2", ranks=2, fault_step=at,
+          where="backward", restarts=got["restarts"],
+          steps=json.dumps(want_seen),
+          losses=json.dumps(whole[:at + 1]), replayed_equal=True,
+          params_equal=True, recovery_s=json.dumps(got["recovery_s"]),
+          group_timeout_s=dist.DEFAULT_TIMEOUT_S,
+          runner_wall_s=round(got["wall_s"], 1),
+          peak_bytes=got["peak_bytes"], card=json.dumps(smi))
+    noticed = got["noticed"] - killed_at
+    check(got["lost"] == [1] and "[1]" in got["error"],
+          f"fault_sharded kill: rank 0 raised {got['error']}")
+    check(noticed < dist.DEFAULT_TIMEOUT_S / 10,
+          f"fault_sharded kill: rank 0 noticed after {noticed} s")
+    check(got["mesh"] == {"data": 1, "model": 1}
+          and got["restored"] == at + 1,
+          f"fault_sharded kill: re-meshed {got['mesh']} from step "
+          f"{got['restored']}")
+    err = max(abs(loss - whole[s]) / abs(whole[s]) for s, loss in
+              got["after"])
+    check([s for s, _ in got["after"]] == [at + 1]
+          and err <= TRAIN_SHARDED_LOSS_RTOL,
+          f"fault_sharded kill: {got['after']} against the unfailed "
+          f"{whole} ({err})")
+    phase("fault_sharded", run="kill", killed_step=at + 1,
+          where="forward", lost=got["lost"], noticed_s=round(noticed, 2),
+          group_timeout_s=dist.DEFAULT_TIMEOUT_S, remesh="1x1",
+          restored_step=got["restored"],
+          restore_s_one_rank=round(got["restore_s"], 1),
+          losses_after=json.dumps(got["after"]), rel_err=err,
+          wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def heads_argv(extra: list) -> list:
+    """A launcher's arguments for phase 31's whisper-small (cut)."""
+    return (["--arch", "whisper-small", "--override",
+             json.dumps(TP_HEADS_WHOLE_CUT)] + extra)
+
+
+def launches_rank(spec: str) -> None:
+    """One rank of a launch (``--launches``, under ``python -m
+    torch.distributed.run``) that runs each ``[module, argv]`` of the
+    JSON list ``spec`` in turn, ``module.main(argv)``, in one gloo
+    process group: the ranks' processes start once for all of a phase's
+    runs. Before each run the memory is freed and the peak statistics
+    and the kernels' launch counts set to 0; after it tracing stops."""
+    import importlib
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import dist, obs
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
+    from repro_torch.kernels.crossbar_step import (crossbar_run,
+                                                   crossbar_run_packed)
+    dist.init_distributed("gloo")
+    try:
+        for module, argv in json.loads(spec):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            crossbar_run_packed.launches = crossbar_run.launches = 0
+            bitserial_matmul.launches = 0
+            importlib.import_module(module).main(argv)
+            obs.disable()
+            obs.reset_trace()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_launches(nproc: int, launches: list,
+                 timeout: float = RANKS_TIMEOUT_S) -> float:
+    """:func:`launches_rank`'s list ``launches`` on ``nproc`` ranks
+    sharing the card: :func:`run_ranks` of this script's rank entry.
+    Returns the wall seconds."""
+    return run_ranks(nproc, "chip_smoke",
+                     ["--launches", json.dumps(launches)], timeout)
+
+def tp_heads_whole_phase(smi: str) -> None:
+    """Phase 31: whisper-small on (1, 8), its heads whole on every rank
+    (see ``TP_HEADS_WHOLE_*``), each launcher against one rank in this
+    process."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import ParallelAxis
+    from repro_torch.models.blocks import heads_split
+    t_phase = time.perf_counter()
+    n = TP_HEADS_WHOLE_RANKS
+    cfg = get_config("whisper-small").scaled(**TP_HEADS_WHOLE_CUT)
+    check(not heads_split(cfg, ParallelAxis(None, n, 0)),
+          f"tp_heads_whole: {cfg.n_heads} heads split over {n}")
+    one_serve, serve_peak = serve_one_rank(
+        heads_argv(TP_HEADS_WHOLE_RUNS[0][1]))
+    one_train, train_peak, _ = one_rank_run(
+        heads_argv(TP_HEADS_WHOLE_RUNS[1][1]), cfg.n_layers)
+    with tempfile.TemporaryDirectory(dir=BUILD) as out_dir:
+        wall = run_launches(n, [
+            [f"repro_torch.launch.{kind}", heads_argv(extra) + [
+                "--model-parallel", str(n), "--dist-backend", "gloo",
+                "--summary", os.path.join(out_dir, f"{kind}.json")]]
+            for kind, extra in TP_HEADS_WHOLE_RUNS])
+        got = {kind: json.loads((Path(out_dir) / f"{kind}.json")
+                                .read_text())
+               for kind, _ in TP_HEADS_WHOLE_RUNS}
+    for kind, one, peak in (("serve", one_serve, serve_peak),
+                            ("train", one_train, train_peak)):
+        run, name = got[kind], f"tp_heads_whole {kind}"
+        check(run["mesh"] == {"data": 1, "model": n},
+              f"{name}: mesh {run['mesh']}")
+        fields = {}
+        if kind == "train":
+            for key, rtol in (("losses", TRAIN_SHARDED_LOSS_RTOL),
+                              ("lrs", TRAIN_SHARDED_LOSS_RTOL),
+                              ("grad_norms", TRAIN_SHARDED_NORM_RTOL)):
+                want = getattr(one, key)
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(run[key], want))
+                check(len(run[key]) == len(want) and err <= rtol,
+                      f"{name}: {key} {run[key]} against one rank's "
+                      f"{want} (relative {err} > {rtol})")
+                fields[key + "_rel_err"] = err
+            fields.update(losses=json.dumps(run["losses"]),
+                          step_s_shared_card=json.dumps(run["step_s"]))
+        else:
+            check(np.array_equal(np.asarray(run["tokens"]), one.tokens),
+                  f"{name}: tokens {run['tokens']} against one rank's "
+                  f"{one.tokens.tolist()}")
+            check(run["rank_recompiles"] == [0] * n,
+                  f"{name}: recompiles by rank {run['rank_recompiles']}")
+            fields.update(tokens_equal=True,
+                          sample=json.dumps(run["tokens"][0]),
+                          decode_tok_s_shared_card=round(
+                              SERVE_BATCH * run["tokens_per_s"], 3))
+        phase("tp_heads_whole", launcher=kind, arch="whisper-small",
+              layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+              heads=cfg.n_heads, mesh=f"1x{n}", ranks=n,
+              backend="gloo (all ranks on one card, every collective "
+                      "through the host)", **fields,
+              peak_bytes=json.dumps(run["peak_bytes"]), one_rank_peak=peak,
+              card=json.dumps(smi))
+    phase("tp_heads_whole", ranks_wall_s=round(wall, 1),
+          seconds=round(time.perf_counter() - t_phase, 1))
 
 
 def serve_tables(eng) -> list:
@@ -2959,6 +3337,10 @@ def run_phases() -> None:
 
     # ------------------------------- 29. tensor-parallel families ----
     main_launches["K1"] += tp_families_phase(smi)
+
+    # ------------------------- 30-31. faults and heads on a mesh ----
+    fault_sharded_phase(smi)
+    tp_heads_whole_phase(smi)
     check(all(main_launches[k] > 0 for k in ("K1", "K2", "K3")),
           f"a kernel of the main path never launched: {main_launches}")
 
@@ -3003,5 +3385,9 @@ def run_phases() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-rank"]:
         dryrun_rank(json.loads(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--launches"]:
+        launches_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--fault-rank"]:
+        fault_rank(sys.argv[2], kill="--kill" in sys.argv[3:])
     else:
         main()

@@ -39,11 +39,26 @@ mesh axes, and collectives called by hand where GSPMD would insert them.
   output under the reference's HLO name (``all-reduce``: the tensor;
   ``all-gather``: the gathered tensor; ``reduce-scatter``: this rank's
   part; a broadcast, which the reference's steps do not have, under its
-  ``c10d`` name ``broadcast_``).
+  ``c10d`` name ``broadcast_``). Under an armed :class:`Fence` a
+  reduce-scatter runs, and counts, as the all-reduce of the whole.
 * :func:`fake_world` runs one rank of a world of any size in this
   process on torch's fake backend, which completes every collective
   without moving a byte: the dry-run traces a rank's real sharded step
   under it, on fake tensors.
+* :class:`Fence` carries a fault out of band, through the rendezvous
+  store (a ``FileStore``, or the ``TCPStore`` of
+  ``torch.distributed.run``), which outlives a broken collective. While
+  a fence is armed every collective above is issued asynchronously and
+  waited for in short polls; between polls the rank looks for a fault
+  that another rank of the mesh posted and raises :class:`PeerFault`,
+  so no rank stays blocked in a collective that a failed rank will never
+  enter. A rank whose process died closes its sockets, so a rank that
+  waits on it gets gloo's error at once and posts it in turn.
+  :func:`rebuild_mesh_comm` then makes a mesh's process groups anew, in
+  place, so every :class:`ParallelAxis` that a step holds sees them.
+  The retrying runner (:mod:`repro_torch.train.fault`) arms it on gloo
+  alone (:meth:`Fence.supported`): an NCCL collective left pending
+  needs its communicator aborted, which is not tested here.
 
 Gloo takes CUDA tensors for every collective used here in the torch of
 the card's machine (2.11; :func:`probe_gloo_cuda`, ``python -m
@@ -63,8 +78,11 @@ import datetime
 import itertools
 import math
 import os
+import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, FrozenSet, Iterable, Optional, Sequence, Tuple
+from typing import (Any, Dict, FrozenSet, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -80,7 +98,8 @@ __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_distributed",
            "barrier", "copy_to_parallel", "reduce_from_parallel",
            "gather_from_parallel", "gather_out_of_parallel",
            "sum_in_parallel", "max_from_parallel", "collective_bytes",
-           "reset_collective_bytes", "fake_world"]
+           "reset_collective_bytes", "fake_world", "rebuild_mesh_comm",
+           "Fence", "PeerFault", "RanksLost"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -206,11 +225,13 @@ def local_device(kind: str) -> torch.device:
 
 
 # --------------------------------------------------------------- mesh ----
-@dataclass(frozen=True)
+@dataclass(eq=False)
 class ParallelAxis:
     """One rank's place on a set of mesh axes: the process group over
     them (``None`` when they hold one rank), their size and this rank's
-    index (row-major over the axes, which is its rank in the group)."""
+    index (row-major over the axes, which is its rank in the group).
+    :func:`rebuild_mesh_comm` replaces ``group`` in place, so a step that
+    took the axis when it was made goes on with the new group."""
 
     group: Any
     size: int
@@ -220,14 +241,18 @@ class ParallelAxis:
 @dataclass(frozen=True, eq=False)
 class MeshComm:
     """This rank's view of a mesh: its global ``rank``, its ``coords``
-    over ``axis_names`` and a :class:`ParallelAxis` for every non-empty
-    set of axes (``axes``, keyed by frozenset of names)."""
+    over ``axis_names``, a :class:`ParallelAxis` for every non-empty set
+    of axes (``axes``, keyed by frozenset of names), the mesh's global
+    ``ranks`` (row-major) and whether its groups were made by its own
+    ranks alone (``local_sync``)."""
 
     rank: int
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     coords: Tuple[int, ...]
     axes: Dict[FrozenSet[str], ParallelAxis]
+    ranks: Tuple[int, ...] = ()
+    local_sync: bool = False
 
     def axis(self, names: Iterable[str]) -> ParallelAxis:
         """The :class:`ParallelAxis` over ``names`` (names not on the
@@ -245,6 +270,34 @@ def _row_major(sizes: Sequence[int], coords: Sequence[int]) -> int:
     return idx
 
 
+def _mesh_groups(axis_sizes: Tuple[int, ...], ranks: List[int],
+                 coords: Optional[Tuple[int, ...]]):
+    """Every process group of a mesh, in the order every rank makes them:
+    ``(axis indices, size, sorted members, mine, this rank's index)``
+    (``mine`` false and the index None on a rank outside the group)."""
+    n_axes = len(axis_sizes)
+    for mask in range(1, 1 << n_axes):
+        sub = [i for i in range(n_axes) if mask >> i & 1]
+        rest = [i for i in range(n_axes) if not mask >> i & 1]
+        size = math.prod(axis_sizes[i] for i in sub)
+        for fixed in itertools.product(*(range(axis_sizes[i])
+                                         for i in rest)):
+            members = []
+            for inner in itertools.product(*(range(axis_sizes[i])
+                                             for i in sub)):
+                c = [0] * n_axes
+                for i, v in zip(rest, fixed):
+                    c[i] = v
+                for i, v in zip(sub, inner):
+                    c[i] = v
+                members.append(ranks[_row_major(axis_sizes, c)])
+            mine = coords is not None and all(
+                coords[i] == v for i, v in zip(rest, fixed))
+            index = (_row_major([axis_sizes[i] for i in sub],
+                                [coords[i] for i in sub]) if mine else None)
+            yield sub, size, sorted(members), mine, index
+
+
 def build_mesh_comm(axis_sizes: Sequence[int], axis_names: Sequence[str],
                     ranks: Sequence[int], *, local_sync: bool = False
                     ) -> Optional[MeshComm]:
@@ -259,10 +312,7 @@ def build_mesh_comm(axis_sizes: Sequence[int], axis_names: Sequence[str],
     axis_sizes = tuple(int(n) for n in axis_sizes)
     axis_names = tuple(axis_names)
     ranks = [int(r) for r in ranks]
-    total = 1
-    for n in axis_sizes:
-        total *= n
-    if len(ranks) != total:
+    if len(ranks) != math.prod(axis_sizes):
         raise ValueError(f"{len(ranks)} ranks for a mesh of {axis_sizes}")
     me = dist.get_rank()
     coords = None
@@ -274,39 +324,42 @@ def build_mesh_comm(axis_sizes: Sequence[int], axis_names: Sequence[str],
             flat //= n
         coords = tuple(reversed(coords))
     axes: Dict[FrozenSet[str], ParallelAxis] = {}
-    n_axes = len(axis_names)
-    for mask in range(1, 1 << n_axes):
-        sub = [i for i in range(n_axes) if mask >> i & 1]
-        rest = [i for i in range(n_axes) if not mask >> i & 1]
-        size = 1
-        for i in sub:
-            size *= axis_sizes[i]
-        for fixed in itertools.product(*(range(axis_sizes[i])
-                                         for i in rest)):
-            members = []
-            for inner in itertools.product(*(range(axis_sizes[i])
-                                             for i in sub)):
-                c = [0] * n_axes
-                for i, v in zip(rest, fixed):
-                    c[i] = v
-                for i, v in zip(sub, inner):
-                    c[i] = v
-                members.append(ranks[_row_major(axis_sizes, c)])
-            mine = coords is not None and all(
-                coords[i] == v for i, v in zip(rest, fixed))
-            group = None
-            if size > 1 and (mine or not local_sync):
-                group = dist.new_group(sorted(members),
-                                       use_local_synchronization=local_sync)
-            if mine:
-                index = _row_major([axis_sizes[i] for i in sub],
-                                   [coords[i] for i in sub])
-                key = frozenset(axis_names[i] for i in sub)
-                axes[key] = ParallelAxis(group if size > 1 else None, size,
-                                         index)
+    for sub, size, members, mine, index in _mesh_groups(axis_sizes, ranks,
+                                                        coords):
+        group = None
+        if size > 1 and (mine or not local_sync):
+            group = dist.new_group(members,
+                                   use_local_synchronization=local_sync)
+        if mine:
+            axes[frozenset(axis_names[i] for i in sub)] = ParallelAxis(
+                group, size, index)
     if coords is None:
         return None
-    return MeshComm(me, axis_names, axis_sizes, coords, axes)
+    return MeshComm(me, axis_names, axis_sizes, coords, axes, tuple(ranks),
+                    local_sync)
+
+
+def rebuild_mesh_comm(comm: MeshComm) -> None:
+    """Make every process group of ``comm``'s mesh anew and put each in
+    its :class:`ParallelAxis` in place (after a fault has left the old
+    ones with collectives that will never finish; those are abandoned,
+    not destroyed, so no group name is used twice). Called as the mesh
+    was made: by every rank of the default group in the same order
+    (which then must all be on the mesh), or, for a mesh made with
+    ``local_sync``, by its own ranks."""
+    if not comm.local_sync and len(comm.ranks) != world_size():
+        raise RuntimeError(f"a mesh of {len(comm.ranks)} of the world's "
+                           f"{world_size()} ranks, made by every rank, "
+                           f"cannot be rebuilt by its own ranks alone")
+    ranks = list(comm.ranks)
+    for sub, size, members, mine, _ in _mesh_groups(comm.axis_sizes, ranks,
+                                                    comm.coords):
+        if size > 1 and (mine or not comm.local_sync):
+            group = dist.new_group(members,
+                                   use_local_synchronization=comm.local_sync)
+            if mine:
+                key = frozenset(comm.axis_names[i] for i in sub)
+                comm.axes[key].group = group
 
 
 def mesh_axis(mesh, names: Iterable[str]) -> ParallelAxis:
@@ -317,6 +370,157 @@ def mesh_axis(mesh, names: Iterable[str]) -> ParallelAxis:
     if comm is None:
         return ParallelAxis(None, 1, 0)
     return comm.axis(names)
+
+
+# -------------------------------------------------------- fault fence ----
+class PeerFault(RuntimeError):
+    """Another rank of an armed :class:`Fence`'s mesh posted a fault while
+    this rank waited in a collective (the message is what it posted)."""
+
+
+class RanksLost(RuntimeError):
+    """Ranks of a mesh that stopped taking part: their processes are
+    gone (``ranks``, global)."""
+
+    def __init__(self, ranks: Sequence[int], message: str):
+        super().__init__(message)
+        self.ranks = tuple(int(r) for r in ranks)
+
+
+_FENCE: Optional["Fence"] = None
+_FENCE_RUNS: Dict[Tuple[int, ...], int] = {}
+
+
+def _default_store():
+    """The default group's rendezvous store (``torch.distributed`` keeps
+    it private): a ``FileStore``, or ``torch.distributed.run``'s
+    ``TCPStore`` under this attempt's prefix."""
+    from torch.distributed.distributed_c10d import _get_default_store
+    return _get_default_store()
+
+
+class Fence:
+    """Out-of-band fault signals among the ``ranks`` of a mesh, through
+    the default group's store, which a broken collective leaves
+    working. Every rank of the mesh makes its fences in the same order
+    (keys are kept apart by the ranks and a count of the fences made
+    over them), and arms one with ``with fence:``.
+
+    While armed: a heartbeat thread adds one to this rank's counter
+    every ``beat_s``; every collective of this module waits in polls and,
+    every ``poll_s``, raises :class:`PeerFault` when a rank
+    has :meth:`post`-ed a fault for this ``generation``. After a fault
+    each rank :meth:`arrive`-s; :meth:`missing` and :meth:`beats` tell
+    the caller who has not come and whether they still beat;
+    :meth:`next_generation` starts over."""
+
+    poll_s = 0.2       # seconds between looks for a posted fault
+    beat_s = 0.5       # seconds between heartbeats
+
+    @staticmethod
+    def supported(group) -> bool:
+        """Whether a fence can be armed over ``group``: gloo only, whose
+        pending collectives are simply left behind after a fault."""
+        return group is not None and dist.get_backend(group) == "gloo"
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks = tuple(sorted(int(r) for r in ranks))
+        self.rank = rank()
+        n = _FENCE_RUNS.get(self.ranks, 0)
+        _FENCE_RUNS[self.ranks] = n + 1
+        mesh = "_".join(map(str, self.ranks))
+        self.store = dist.PrefixStore(f"repro_torch/fence/{mesh}/{n}/",
+                                      _default_store())
+        self.generation = 0
+        self._stop = threading.Event()
+        self._beater: Optional[threading.Thread] = None
+
+    def __enter__(self) -> "Fence":
+        global _FENCE
+        if _FENCE is not None:
+            raise RuntimeError("a fence is already armed in this process")
+        if not Fence.supported(dist.group.WORLD):
+            raise RuntimeError(f"a fence needs gloo, not "
+                               f"{dist.get_backend()}")
+        self.store.add(f"beat/{self.rank}", 1)
+        self._stop.clear()
+        self._beater = threading.Thread(target=self._beat, daemon=True,
+                                        name=f"fence-beat-{self.rank}")
+        self._beater.start()
+        _FENCE = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _FENCE
+        _FENCE = None
+        self._stop.set()
+        self._beater.join()
+
+    def _beat(self) -> None:
+        while not self._stop.wait(self.beat_s):
+            try:
+                self.store.add(f"beat/{self.rank}", 1)
+            except RuntimeError:    # the store's host is gone: so is the mesh
+                return
+
+    def _key(self, what: str) -> str:
+        return f"g{self.generation}/{what}"
+
+    def post(self, message: str) -> None:
+        """Post a fault of this rank for this generation (the first one
+        posted is kept)."""
+        self.store.compare_set(self._key("fault"), "", message)
+
+    def posted(self) -> Optional[str]:
+        """The fault posted for this generation, or None."""
+        key = self._key("fault")
+        if not self.store.check([key]):
+            return None
+        return self.store.get(key).decode()
+
+    def wait(self, work) -> None:
+        """Wait for a collective's ``work``, polling ``is_completed`` (the
+        timeout of ``Work.wait`` is not kept by every gloo collective);
+        raises :class:`PeerFault` when a fault is posted meanwhile, and
+        the collective's own error when it fails."""
+        nap, check_at = 1e-4, time.monotonic() + self.poll_s
+        while not work.is_completed():
+            time.sleep(nap)
+            nap = min(2 * nap, 5e-3)
+            now = time.monotonic()
+            if now >= check_at:
+                check_at = now + self.poll_s
+                message = self.posted()
+                if message is not None:
+                    raise PeerFault(message)
+        work.wait()
+
+    def arrive(self) -> None:
+        """Say that this rank has left the failed step."""
+        self.store.set(self._key(f"in/{self.rank}"), "1")
+
+    def missing(self) -> List[int]:
+        """The mesh's ranks that have not arrived in this generation."""
+        return [r for r in self.ranks
+                if not self.store.check([self._key(f"in/{r}")])]
+
+    def beats(self, r: int) -> int:
+        """Rank ``r``'s heartbeat count."""
+        return int(self.store.add(f"beat/{r}", 0))
+
+    def next_generation(self) -> None:
+        """Start the next generation (every rank, after all arrived)."""
+        self.generation += 1
+
+
+def _call(fn, *args, **kwargs) -> None:
+    """``fn(*args, **kwargs)``, a collective: at once, or under an armed
+    :class:`Fence` issued asynchronously and waited for in polls."""
+    fence = _FENCE
+    if fence is None:
+        fn(*args, **kwargs)
+    else:
+        fence.wait(fn(*args, async_op=True, **kwargs))
 
 
 # -------------------------------------------------------- collectives ----
@@ -346,7 +550,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     if group is not None:
         with obs.span("dist.all_reduce", cat="dist", op=op,
                       bytes=x.numel() * x.element_size()):
-            dist.all_reduce(x, op=_OPS[op], group=group)
+            _call(dist.all_reduce, x, op=_OPS[op], group=group)
         _moved("all-reduce", x)
     return x
 
@@ -384,7 +588,8 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
         return x
     with obs.span("dist.broadcast", cat="dist",
                   bytes=x.numel() * x.element_size()):
-        dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+        _call(dist.broadcast, x, src=dist.get_global_rank(group, src),
+              group=group)
     _moved("broadcast_", x)
     return x
 
@@ -420,7 +625,7 @@ def barrier(group) -> None:
     """Wait for every rank of ``group`` (``dist.group.WORLD`` for the
     world; ``None``, one rank, returns at once)."""
     if group is not None:
-        dist.barrier(group=group)
+        _call(dist.barrier, group=group)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -432,7 +637,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     with obs.span("dist.all_gather", cat="dist",
                   bytes=out.numel() * out.element_size()):
-        _all_gather_single(out, src, group=group)
+        _call(_all_gather_single, out, src, group=group)
     _moved("all-gather", out)
     return out.movedim(0, dim).contiguous()
 
@@ -450,8 +655,18 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
     with obs.span("dist.reduce_scatter", cat="dist",
                   bytes=src.numel() * src.element_size()):
-        _reduce_scatter_single(out, src, group=group)
-    _moved("reduce-scatter", out)
+        if _FENCE is None:
+            _reduce_scatter_single(out, src, group=group)
+            _moved("reduce-scatter", out)
+        else:
+            # gloo's reduce-scatter moves only inside ``Work.wait``, which
+            # cannot be polled: under a fence (gloo alone), an all-reduce
+            # of which this rank keeps its part
+            whole = src.clone()
+            _call(dist.all_reduce, whole, group=group)
+            out.copy_(whole.narrow(0, dist.get_rank(group) * out.shape[0],
+                                   out.shape[0]))
+            _moved("all-reduce", whole)
     return out.movedim(0, dim).contiguous()
 
 

@@ -85,16 +85,14 @@ expert, the remainder one each to the first experts, which rank 0
 holds), which leaves the FLOPs of dropless dispatch over all the ranks
 unchanged.
 
-**The exception: heads the model axis does not split.** The port splits
-attention by heads (Megatron's layout), and ``tensor_parallel`` refuses
-a model axis that does not divide them; GSPMD splits inside a head.
-whisper-small's 12 heads over 16 model ranks are the one case among the
-configs (its train, prefill and decode records on both meshes): those
-records keep the whole-width trace at the per-device batch, with
-FLOPs and bytes accessed over the model axis and temp bytes an upper
-bound, ``trace.per_rank`` false (true elsewhere), ``collective_bytes``
-None (not counted) and a note that names the refusal. Any other
-failure of the rank's trace fails the record.
+**Heads the model axis does not split.** Where the axis cannot split a
+config's heads (``models.blocks.heads_split``; among the configs,
+whisper-small's 12 heads over 16 model ranks, in its train, prefill and
+decode records on both meshes), every rank runs the attention over all
+heads, as GSPMD's whole-head layout would not: those records are rank
+0's traced step like every other (``trace.per_rank`` true, collectives
+counted), and a note says that a rank's attention FLOPs are the whole
+width's. Any failure of the rank's trace fails the record.
 
 No compiler runs: ``compile_s`` is None. :func:`collective_bytes` is
 kept for HLO text. On a mesh of one device (``make_host_mesh()``'s
@@ -139,7 +137,7 @@ from repro_torch.engine import Engine
 from repro_torch.launch.mesh import (Mesh, abstract_mesh,
                                      make_production_mesh, mesh_over_ranks)
 from repro_torch.models import build_model, input_specs
-from repro_torch.models.blocks import tensor_parallel
+from repro_torch.models.blocks import heads_split, tensor_parallel
 from repro_torch.models.model import abstract_params
 from repro_torch.models.transformer import init_decode_state, stack_plan
 from repro_torch.optim import AdamWConfig, OptState
@@ -202,12 +200,10 @@ NOTES = ("rank 0's step on its mesh (one device's share of the "
          "microbatch counted as one after the first; trace."
          "full_width_temp_bytes is the same step's temp at the whole width "
          "on one device; no compiler runs, so compile_s is null")
-WHOLE_WIDTH_NOTE = ("per_rank false: {} (the port splits attention by "
-                    "heads; GSPMD splits inside a head): this record "
-                    "keeps the whole-width trace at the per-device batch, "
-                    "flops and bytes_accessed over the model axis and "
-                    "temp_bytes an upper bound; collective_bytes is null, "
-                    "not counted")
+HEADS_WHOLE_NOTE = ("heads whole: {} heads do not split over a model axis "
+                    "of {}, so every rank runs the attention over all "
+                    "heads and a rank's attention FLOPs equal the whole "
+                    "width's (the MLP and the vocabulary still split)")
 
 
 def collective_bytes(hlo_text: str) -> Dict[str, int]:
@@ -761,10 +757,8 @@ def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
     On a mesh of more than one device the record is rank 0's: its real
     sharded step traced in a fake world of the mesh's ranks
     (:func:`repro_torch.dist.fake_world`, which raises when a process
-    group is running here). Where the model axis cannot split the
-    config's heads (``tensor_parallel`` refuses), the record keeps the
-    whole-width trace, its counts over the model axis, and
-    ``collective_bytes`` is None (see :data:`NOTES`). Without
+    group is running here); where the model axis cannot split the
+    config's heads a note says so (:data:`HEADS_WHOLE_NOTE`). Without
     ``full_width`` a rank's record skips the whole-width trace kept for
     comparison (``trace.full_width_*`` None), which halves its time."""
     t0 = time.perf_counter()
@@ -772,38 +766,30 @@ def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
     args_b, out_b = spec_bytes(cfg, shape, mesh, params)
     rows, n_mb = _device_rows(cfg, shape, mesh, microbatches)
     notes = [NOTES]
-    refused = ranked = None
+    ranked = None
     if mesh.size > 1:
         # the rank's step takes the whole batch of decode and prefill,
         # and its own rows of a train microbatch
         given = rows if shape.kind == "train" else shape.global_batch
         with dist.fake_world(mesh.axis_sizes):
             rank_mesh = mesh_over_ranks(mesh.axis_sizes, mesh.axis_names)
-            try:
-                tensor_parallel(cfg, rank_mesh)
-            except NotImplementedError as e:
-                refused = str(e)
-            if refused is None:
-                ranked = _trace_cell(cfg, shape, given, n_mb, params,
-                                     rank_mesh)
+            tp = tensor_parallel(cfg, rank_mesh)
+            if tp is not None and cfg.family != "rwkv" \
+                    and not heads_split(cfg, tp):
+                notes.append(HEADS_WHOLE_NOTE.format(cfg.n_heads, tp.size))
+            ranked = _trace_cell(cfg, shape, given, n_mb, params, rank_mesh)
     # the whole width at this device's rows: the temp to compare with
-    # (and the record itself on one device or where the heads refuse)
+    # (and the record itself on one device)
     full = None
     if full_width or ranked is None:
         full = _trace_cell(cfg, shape, rows, n_mb, params, None,
                            accessed=ranked is None)
     ranked = ranked or full
-    if refused is not None:
-        tp = mesh.shape.get("model", 1)
-        flops, accessed, coll = full["flops"] / tp, \
-            full["bytes_accessed"] / tp, None
-        notes.append(WHOLE_WIDTH_NOTE.format(refused))
-    else:
-        flops, accessed = ranked["flops"], ranked["bytes_accessed"]
-        coll = ranked["collective_bytes"]
-        for kind in ranked["other_kinds"]:
-            notes.append(f"collective_bytes[{kind!r}]: a c10d collective "
-                         f"with no name in the reference's HLO")
+    flops, accessed = ranked["flops"], ranked["bytes_accessed"]
+    coll = ranked["collective_bytes"]
+    for kind in ranked["other_kinds"]:
+        notes.append(f"collective_bytes[{kind!r}]: a c10d collective "
+                     f"with no name in the reference's HLO")
     temp = ranked["temp"]
     trace_s = ranked["seconds"]
     if full is not None and full is not ranked:
@@ -823,7 +809,7 @@ def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
         "collective_bytes": coll,
         "trace": {"rows": rows, "microbatches": n_mb,
                   "units": ranked["units"], "n_units": stack_plan(cfg)[2],
-                  "per_rank": refused is None,
+                  "per_rank": mesh.size > 1,
                   **{k: v for k, v in _whole_width(full).items()
                      if k != "seconds"},
                   "seconds": round(trace_s, 1)},
@@ -838,7 +824,7 @@ def cell_record(cfg, shape, mesh: Mesh, *, microbatches: int = 1,
               f"temp={_fmt_bytes(pd['temp_bytes'])} "
               f"(full width {full and _fmt_bytes(full['temp'])}) "
               f"peak={_fmt_bytes(pd['peak_bytes'])} "
-              f"collectives={coll} per_rank={refused is None} "
+              f"collectives={coll} per_rank={mesh.size > 1} "
               f"(trace {trace_s:.1f}s, units {ranked['units']})",
               flush=True)
     return rec

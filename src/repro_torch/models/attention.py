@@ -239,7 +239,8 @@ def partial_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attend_split(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
                         v_new: torch.Tensor, group, index: int, size: int, *,
                         window: Optional[int] = None,
-                        cap: Optional[float] = None
+                        cap: Optional[float] = None,
+                        every_head: bool = False
                         ) -> Tuple[torch.Tensor, KVCache]:
     """:func:`decode_attend` against a T-slot ring split over ``size``
     ranks of ``group``: ``cache.k``/``cache.v`` (B, T/size, Hkv, D) hold
@@ -256,7 +257,9 @@ def decode_attend_split(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
     :func:`partial_attend` over its slots, the maxima's maximum (one
     all-reduce), then the sums and outputs rescaled to it and summed (one
     more); the rank keeps its own heads. Returns them (B, 1, hq, D) and
-    the cache with the same buffers and ``length + 1``.
+    the cache with the same buffers and ``length + 1``. With
+    ``every_head`` ``q`` holds every query head on every rank (heads that
+    the axis does not split): none is gathered, and all are returned.
     """
     t_l = cache.k.shape[1]
     t = t_l * size
@@ -274,12 +277,14 @@ def decode_attend_split(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
     kpos_slot = index * t_l + torch.arange(t_l, device=k.device)
     valid = _valid_slots(slot, new_len, kpos_slot, t, window)
     hq = q.shape[2]
-    m, l, o = partial_attend(dist.all_gather(q, group, dim=2), k, v, valid,
-                             cap)
+    q_all = q if every_head else dist.all_gather(q, group, dim=2)
+    m, l, o = partial_attend(q_all, k, v, valid, cap)
     top = dist.all_reduce(m.clone(), group, "max")
     c = torch.exp(m - top).transpose(1, 2)              # (B, 1, H, 1)
     both = dist.all_reduce(torch.cat([o * c, l.transpose(1, 2) * c],
                                      dim=-1), group)
     out = both[..., :-1] / both[..., -1:]
-    out = out[:, :, index * hq:(index + 1) * hq].to(q.dtype)
+    if not every_head:
+        out = out[:, :, index * hq:(index + 1) * hq]
+    out = out.to(q.dtype)
     return out, KVCache(k, v, new_len)

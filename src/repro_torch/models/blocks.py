@@ -55,6 +55,19 @@ axis is used whole: a ``d_ff`` that does not split runs the whole MLP on
 every rank, experts that do not split all run on every rank, and neither
 is summed.
 
+Where the axis cannot split a block's heads (:func:`heads_split`: query
+heads it does not divide, or that do not align with the KV groups, or
+RWKV heads it does not divide), every rank runs that block's attention
+(self and cross) or RWKV time mix over all heads, as one rank would,
+and its output needs no sum. The leaves stay placed by the rules: a
+whole one is used as it is, a split one (its shard may cut a head) is
+gathered whole, and backward each rank keeps its own slice of the
+gradient, which every rank computes whole and alike (:func:`_whole`).
+The block's MLP still splits where its width divides. A decode cache is
+placed by ``state_shardings`` as ever: over the slots, every rank
+attending its own and the partial softmaxes combined, or whole on every
+rank.
+
 ``dp`` is this rank's place on the data axes (``pod``, ``data``), over
 which the rows of ``x`` are split, or None. Only the PIM projections
 read it: a quantisation scale is the whole tensor's, so each projection
@@ -78,7 +91,13 @@ from .attention import (KVCache, attend, decode_attend,
 from .layers import Initializer, rms_norm, rope
 
 __all__ = ["init_block", "apply_block", "init_state", "pim_proj",
-           "tensor_parallel", "data_parallel"]
+           "tensor_parallel", "data_parallel", "heads_split", "WHOLE_CACHE"]
+
+# A key with no leaf (its value None) in a KV cache's state: the cache is
+# whole on every rank of the model axis (``state_shardings`` splits it
+# over neither its KV heads nor its slots), which a rank's shard alone
+# cannot tell from a slice of the slots.
+WHOLE_CACHE = "whole"
 
 
 def _gelu(x):
@@ -96,35 +115,29 @@ def _engine(engine):
 def tensor_parallel(cfg: ModelConfig, mesh):
     """This rank's :class:`repro_torch.dist.ParallelAxis` on the
     ``model`` axis of ``mesh``, or None when there is no mesh of ranks
-    or that axis holds one rank.
-
-    Raises ``NotImplementedError`` where the split cannot be done: query
-    heads that do not divide the axis or do not align with the KV
-    groups, and RWKV heads (``d_model / rwkv_head_dim``) that do not
-    divide it."""
+    or that axis holds one rank. Every config takes any axis: where it
+    cannot split a block's heads the block runs them whole
+    (:func:`heads_split`)."""
     if mesh is None or getattr(mesh, "comm", None) is None:
         return None
     tp = dist.mesh_axis(mesh, ("model",))
-    if tp.size == 1:
-        return None
+    return None if tp.size == 1 else tp
+
+
+def heads_split(cfg: ModelConfig, tp) -> bool:
+    """Whether a block's heads split over ``tp`` (Megatron's layout: each
+    rank its heads' columns), or run whole on every rank (False, also
+    without a model axis): query heads that the axis divides into runs
+    aligned with the KV groups, or RWKV heads (``d_model /
+    rwkv_head_dim``) that it divides."""
+    if tp is None:
+        return False
     if cfg.family == "rwkv":
-        nh = cfg.d_model // cfg.rwkv_head_dim
-        if nh % tp.size:
-            raise NotImplementedError(
-                f"{cfg.name}: {nh} RWKV heads (d_model {cfg.d_model} / "
-                f"{cfg.rwkv_head_dim}) do not split over a model axis of "
-                f"{tp.size}")
-        return tp               # no attention block
+        return (cfg.d_model // cfg.rwkv_head_dim) % tp.size == 0
     if cfg.n_heads % tp.size:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads do not split over a model "
-            f"axis of {tp.size}")
+        return False
     hq, g = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
-    if hq % g and g % hq:
-        raise NotImplementedError(
-            f"{cfg.name}: {hq} query heads a rank do not align with "
-            f"groups of {g} over the KV heads")
-    return tp
+    return hq % g == 0 or g % hq == 0
 
 
 def data_parallel(mesh):
@@ -165,6 +178,17 @@ def _tp_cols(w: torch.Tensor, lo: int, hi: int, full: int, tp,
         return w.narrow(dim, lo - start, hi - lo)
     whole = dist.gather_from_parallel(w, tp.group, dim)
     return whole.narrow(dim, lo, hi - lo)
+
+
+def _whole(w: torch.Tensor, full: int, tp, dim: int = -1) -> torch.Tensor:
+    """The whole leaf for a block that every rank of ``tp`` runs alike
+    (heads that do not split): ``w`` as stored where the rules keep its
+    ``full`` columns (``dim``) whole, else its shards gathered. Its
+    gradient is the whole one on every rank alike, so it is not summed,
+    and a shard keeps its own slice of it."""
+    if tp is None or w.shape[dim] == full:
+        return w
+    return dist.gather_out_of_parallel(w, tp.group, dim)
 
 
 # ------------------------------------------------------ PIM offload ----
@@ -340,15 +364,18 @@ def _qkv_tp(cfg: ModelConfig, p, xn, pos, tp, engine, dp):
 
 
 def _qkv(cfg: ModelConfig, p, xn, pos, engine, tp=None, dp=None):
-    if tp is not None:
+    """q, k, v: of this rank's heads where they split over ``tp``, else
+    of every head (the leaves made whole, :func:`_whole`)."""
+    if heads_split(cfg, tp):
         return _qkv_tp(cfg, p, xn, pos, tp, engine, dp)
     b, s, _ = xn.shape
     kw = dict(scope="attn", engine=engine, dp=dp)
-    q = pim_proj(cfg, xn, p["wq"], **kw).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = pim_proj(cfg, xn, p["wk"], **kw).reshape(b, s, cfg.n_kv_heads,
-                                                 cfg.hd)
-    v = pim_proj(cfg, xn, p["wv"], **kw).reshape(b, s, cfg.n_kv_heads,
-                                                 cfg.hd)
+    q = pim_proj(cfg, xn, _whole(p["wq"], cfg.q_dim, tp), **kw).reshape(
+        b, s, cfg.n_heads, cfg.hd)
+    k = pim_proj(cfg, xn, _whole(p["wk"], cfg.kv_dim, tp), **kw).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
+    v = pim_proj(cfg, xn, _whole(p["wv"], cfg.kv_dim, tp), **kw).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
@@ -412,6 +439,24 @@ def _every_kv_head(cfg: ModelConfig, k, v, tp):
     return kv[..., :d], kv[..., d:]
 
 
+def _decode_whole_cache(cfg: ModelConfig, q, cache: KVCache, k, v, tp, *,
+                        window, cap):
+    """A decode step of this rank's query heads ``q`` over a cache whole
+    on every rank (every KV head) while the heads split over ``tp``: the
+    new key and value of every head (gathered) go into every rank's
+    cache, and the rank attends over its own KV heads' slice of it."""
+    k0, hk = _tp_heads(cfg, tp)[2:]
+    ka, va = _every_kv_head(cfg, k, v, tp)
+    mine = KVCache(cache.k.narrow(2, k0, hk), cache.v.narrow(2, k0, hk),
+                   cache.length)
+    o, mine = decode_attend(q, mine, k, v, window=window, cap=cap)
+    slot = torch.remainder(cache.length, cache.k.shape[1]).reshape(1).to(
+        torch.int64)
+    cache.k.index_copy_(1, slot, ka.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, va.to(cache.v.dtype))
+    return o, KVCache(cache.k, cache.v, mine.length)
+
+
 def _prefill_cache(cache, k, v, split):
     """The KV cache a prefill of ``k``/``v`` (B, S, H, D) leaves in the
     cache ``cache`` (``{"k", "v", "length"}``; with ``split``, this
@@ -436,52 +481,67 @@ def _prefill_cache(cache, k, v, split):
 
 def _self_attend(cfg: ModelConfig, q, k, v, state, mode: str, tp, *,
                  window=None, fill: bool = True):
-    """Self-attention of ``q``/``k``/``v`` (this rank's heads under
-    ``tp``) and the state it leaves: with ``state``, a prefill writes
-    the KV behind (``fill``; the reference's MoE block does not), a
-    decode step appends to this rank's shard of the cache."""
-    split = None if state is None else _seq_split(cfg, tp,
-                                                  state["self"]["k"])
+    """Self-attention of ``q``/``k``/``v`` (this rank's heads where they
+    split over ``tp``) and the state it leaves: with ``state``, a
+    prefill writes the KV behind (``fill``; the reference's MoE block
+    does not), a decode step appends to this rank's shard of the cache:
+    its KV heads, its slots of every head, or the whole cache
+    (:data:`WHOLE_CACHE`), which every rank keeps alike."""
+    cache = None if state is None else state["self"]
+    whole = tp is not None and cache is not None and WHOLE_CACHE in cache
+    split = None if cache is None or whole else _seq_split(cfg, tp,
+                                                           cache["k"])
     new_state = state
     if mode in ("full", "encode"):
         o = attend(q, k, v, causal=(mode != "encode"), window=window,
                    cap=cfg.softcap_attn)
         if state is not None and fill:     # prefill: leave the KV behind
-            if split is not None:
-                k, v = _every_kv_head(cfg, k, v, split)
+            if split is not None or whole:
+                k, v = _every_kv_head(cfg, k, v, tp)
             new_state = dict(state)
-            new_state["self"] = _prefill_cache(state["self"], k, v, split)
+            new_state["self"] = _marked(_prefill_cache(cache, k, v, split),
+                                        whole)
     else:
-        cache = KVCache(**state["self"])
-        if split is None:
-            o, cache = decode_attend(q, cache, k, v, window=window,
-                                     cap=cfg.softcap_attn)
+        kv = KVCache(cache["k"], cache["v"], cache["length"])
+        if whole and k.shape[2] != cfg.n_kv_heads:
+            o, kv = _decode_whole_cache(cfg, q, kv, k, v, tp, window=window,
+                                        cap=cfg.softcap_attn)
+        elif split is None:
+            o, kv = decode_attend(q, kv, k, v, window=window,
+                                  cap=cfg.softcap_attn)
         else:
             k, v = _every_kv_head(cfg, k, v, split)
-            o, cache = decode_attend_split(q, cache, k, v, split.group,
-                                           split.index, split.size,
-                                           window=window,
-                                           cap=cfg.softcap_attn)
+            o, kv = decode_attend_split(
+                q, kv, k, v, split.group, split.index, split.size,
+                window=window, cap=cfg.softcap_attn,
+                every_head=not heads_split(cfg, split))
         new_state = dict(state)
-        new_state["self"] = cache._asdict()
+        new_state["self"] = _marked(kv._asdict(), whole)
     return o, new_state
+
+
+def _marked(cache: Dict[str, Any], whole: bool) -> Dict[str, Any]:
+    """``cache`` with the :data:`WHOLE_CACHE` mark where ``whole``."""
+    return {**cache, WHOLE_CACHE: None} if whole else cache
 
 
 def _cross_attend(cfg: ModelConfig, p, xn, enc_out, tp, attn):
     """Enc-dec cross-attention of ``xn`` over the encoder's ``enc_out``
-    (whole on every rank; under ``tp``, ``xq``/``xk``/``xv``
-    column-parallel on this rank's heads and ``xo`` row-parallel)."""
+    (whole on every rank; where the heads split over ``tp``,
+    ``xq``/``xk``/``xv`` column-parallel on this rank's heads and ``xo``
+    row-parallel)."""
     b, s, _ = xn.shape
     f = enc_out.shape[1]
-    if tp is None:
-        qx = pim_proj(cfg, xn, p["xq"], **attn).reshape(b, s, cfg.n_heads,
-                                                        cfg.hd)
-        kx = pim_proj(cfg, enc_out, p["xk"], **attn).reshape(
-            b, f, cfg.n_kv_heads, cfg.hd)
-        vx = pim_proj(cfg, enc_out, p["xv"], **attn).reshape(
-            b, f, cfg.n_kv_heads, cfg.hd)
+    if not heads_split(cfg, tp):        # every head (leaves made whole)
+        qx = pim_proj(cfg, xn, _whole(p["xq"], cfg.q_dim, tp),
+                      **attn).reshape(b, s, cfg.n_heads, cfg.hd)
+        kx = pim_proj(cfg, enc_out, _whole(p["xk"], cfg.kv_dim, tp),
+                      **attn).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+        vx = pim_proj(cfg, enc_out, _whole(p["xv"], cfg.kv_dim, tp),
+                      **attn).reshape(b, f, cfg.n_kv_heads, cfg.hd)
         ox = attend(qx, kx, vx, causal=False)
-        return pim_proj(cfg, ox.reshape(b, s, cfg.q_dim), p["xo"], **attn)
+        return pim_proj(cfg, ox.reshape(b, s, cfg.q_dim),
+                        _whole(p["xo"], cfg.q_dim, tp, dim=-2), **attn)
     q0, hq, k0, hk = _tp_heads(cfg, tp)
     xp = dist.copy_to_parallel(xn, tp.group)
     ep = dist.copy_to_parallel(enc_out, tp.group)
@@ -498,18 +558,20 @@ def apply_attn_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
     """One attention block: (self-attention [+ cross-attention] + MLP).
     ``d_ff``: the MLP's width (default ``cfg.d_ff``; a dense block
     inside a MoE stack has its own). Under ``tp``, attention and the MLP
-    on this rank's heads and columns, with this rank's shard of the KV
-    cache (see the module docstring)."""
+    on this rank's heads (or every head, where they do not split) and
+    columns, with this rank's shard of the KV cache (see the module
+    docstring)."""
     b, s, d = x.shape
     window = cfg.window if kind == "l" else None
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
     o, new_state = _self_attend(cfg, q, k, v, state, mode, tp, window=window)
     attn = dict(scope="attn", engine=engine, dp=dp)
-    if tp is not None:          # row-parallel out-projection, then the sum
+    if heads_split(cfg, tp):    # row-parallel out-projection, then the sum
         x = x + _out_tp(cfg, o, p["wo"], tp, **attn)
     else:
-        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim), p["wo"], **attn)
+        x = x + pim_proj(cfg, o.reshape(b, s, cfg.q_dim),
+                         _whole(p["wo"], cfg.q_dim, tp, dim=-2), **attn)
 
     if cfg.family == "encdec" and enc_out is not None:
         xn2 = rms_norm(x, p["lnx"], cfg.norm_eps)
@@ -642,10 +704,11 @@ def apply_moe_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, xn, pos, engine, tp, dp)
     o, new_state = _self_attend(cfg, q, k, v, state, mode, tp, fill=False)
-    if tp is not None:
+    if heads_split(cfg, tp):
         x = x + _out_tp(cfg, o, p["wo"], tp, pim=False)
     else:
-        x = x + (o.reshape(b, s, cfg.q_dim) @ p["wo"])
+        x = x + (o.reshape(b, s, cfg.q_dim)
+                 @ _whole(p["wo"], cfg.q_dim, tp, dim=-2))
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + moe_ffn(cfg, p, xn2, engine=engine, dp=dp, tp=tp), new_state
 
@@ -767,7 +830,8 @@ def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv, tp=None):
     """xn (B,S,D); xprev (B,S,D) = token-shifted xn; returns (y, last wkv).
     The reference's ``lax.scan`` over S is a loop over S.
 
-    Under ``tp``, head-parallel: ``wr``/``wk``/``wv``/``wg`` column- and
+    Where its heads split over ``tp``, head-parallel (else every head on
+    every rank): ``wr``/``wk``/``wv``/``wg`` column- and
     ``wo`` row-parallel, ``w0``/``u``/``gn`` and ``state_wkv`` this
     rank's heads' channels. The decay LoRA's inner vector is whole
     (``wa`` split over its columns, gathered after the tanh, before
@@ -775,10 +839,15 @@ def _rwkv_time_mix(cfg, p, xn, xprev, state_wkv, tp=None):
     square is over the whole ``d_model``, summed over the ranks."""
     b, s, d = xn.shape
     hd = cfg.rwkv_head_dim
-    ch = _tp_range(d, tp)
+    ch = _tp_range(d, tp) if heads_split(cfg, tp) else None
     w = {k: p[k] for k in ("mix", "wr", "wk", "wv", "wg", "wa", "wb", "w0",
                            "u", "gn", "wo")}
     lora = p["wb"].shape[0]
+    if ch is None and tp is not None:   # heads whole: every leaf whole
+        for k in ("wr", "wk", "wv", "wg", "wb", "w0", "u", "gn"):
+            w[k] = _whole(p[k], d, tp)
+        w["wa"] = _whole(p["wa"], lora, tp)
+        w["wo"] = _whole(p["wo"], d, tp, dim=-2)
     if ch is not None:
         xn = dist.copy_to_parallel(xn, tp.group)
         xprev = dist.copy_to_parallel(xprev, tp.group)
@@ -864,7 +933,8 @@ def apply_rwkv_block(cfg: ModelConfig, p, x, *, pos, state, enc_out, mode,
     ch = _tp_range(d, tp)
     if state is None:            # zero states; the wkv of this rank's heads
         hd = cfg.rwkv_head_dim
-        nh = (d if ch is None else ch[1] - ch[0]) // hd
+        heads = ch if heads_split(cfg, tp) else None
+        nh = (d if heads is None else heads[1] - heads[0]) // hd
         zero = x.new_zeros((b, d))
         state = {"wkv": x.new_zeros((b, nh, hd, hd)), "tshift": zero,
                  "cshift": zero}

@@ -41,8 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import (DictKey, tree_flatten, tree_flatten_with_path,
                               tree_map, tree_map_with_path)
 
-from .blocks import (_engine, _group, apply_block, data_parallel, init_block,
-                     init_state, tensor_parallel)
+from .blocks import (WHOLE_CACHE, _engine, _group, apply_block,
+                     data_parallel, init_block, init_state, tensor_parallel)
 from .layers import Initializer, rms_norm, softcap
 
 __all__ = ["stack_plan", "init_params", "forward", "decode_step",
@@ -376,9 +376,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     """Zero decode states for every block, stacked as the parameters are,
     on ``device``. With a ``mesh`` of ranks, this rank's shard of each
     leaf as ``state_shardings`` places it (shapes from ``shard_shape``;
-    nothing whole is made). Under a model axis a KV cache must split
-    over it, by KV heads or by slots: a cache that the rules keep whole
-    there raises ``NotImplementedError``."""
+    nothing whole is made); a KV cache that the rules keep whole over a
+    model axis carries the no-leaf key
+    :data:`~repro_torch.models.blocks.WHOLE_CACHE`, since its shape alone
+    does not tell it from a slice of the slots."""
     if getattr(mesh, "comm", None) is not None:
         return _sharded_decode_state(cfg, batch, cache_len, dtype, device,
                                      mesh)
@@ -405,20 +406,25 @@ def _sharded_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     whole = init_decode_state(cfg, batch, cache_len, dtype, device="meta")
     leaves, treedef = tree_flatten(whole)
     specs = spec_leaves(state_shardings(mesh, whole), len(leaves))
-    paths = [_leaf_name(p) for p, _ in tree_flatten_with_path(whole)[0]]
-    tp = tensor_parallel(cfg, mesh)
-    out = []
-    for name, x, spec in zip(paths, leaves, specs):
-        if tp is not None and name == "k" and "model" not in spec:
-            raise NotImplementedError(
-                f"{cfg.name}: a cache of {x.shape[-3]} slots and "
-                f"{x.shape[-2]} KV heads splits over neither on a model "
-                f"axis of {tp.size}, so state_shardings keeps it whole; "
-                f"sharded decode takes a cache the axis splits (choose "
-                f"a cache length, and window, that it divides)")
-        out.append(torch.zeros(shard_shape(mesh, tuple(x.shape), spec),
-                               dtype=x.dtype, device=device))
-    return treedef.unflatten(out)
+    out = [torch.zeros(shard_shape(mesh, tuple(x.shape), spec),
+                       dtype=x.dtype, device=device)
+           for x, spec in zip(leaves, specs)]
+    states = treedef.unflatten(out)
+    if tensor_parallel(cfg, mesh) is None:
+        return states
+    whole_kv = {id(x) for (path, x), spec in zip(
+        tree_flatten_with_path(states)[0], specs)
+        if _leaf_name(path) == "k" and "model" not in spec}
+
+    def mark(tree):         # a cache the model axis keeps whole
+        if isinstance(tree, dict):
+            tree = {k: mark(v) for k, v in tree.items()}
+            if "k" in tree and id(tree["k"]) in whole_kv:
+                tree[WHOLE_CACHE] = None
+        elif isinstance(tree, list):
+            tree = [mark(v) for v in tree]
+        return tree
+    return mark(states)
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,

@@ -20,7 +20,8 @@ The port's copy of ``repro.train.checkpoint``. Layout::
 
 Sharded (``mesh`` over ``torch.distributed`` ranks, with the tree's
 ``specs``): save gathers every leaf whole on every rank of the mesh and
-its first rank writes the same format, so a checkpoint does not depend
+its first rank writes the same format (each leaf gathered in turn and
+kept on the writer's host), so a checkpoint does not depend
 on the mesh that wrote it; restore reads whole leaves on every rank and
 slices each to this rank's shard on the *current* mesh.
 """
@@ -39,7 +40,7 @@ import torch
 from repro_torch import dist
 from repro_torch.tree import tree_flatten
 
-from .sharding import gather_tree, shard_leaf, spec_leaves
+from .sharding import gather_leaf, shard_leaf, spec_leaves
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "latest_steps"]
@@ -62,13 +63,33 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     tree) every rank of the mesh calls it: the leaves are gathered whole,
     the mesh's first rank writes, and all wait for the publish."""
     if _sharded(mesh):
-        tree = gather_tree(mesh, tree, specs)
+        tree = _gathered_to_host(mesh, tree, specs)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     if _writer(mesh):
         _write(ckpt_dir, final, step, tree, process_index)
     if _sharded(mesh):
         dist.barrier(mesh.comm.axis(mesh.axis_names).group)
     return final
+
+
+def _gathered_to_host(mesh, tree: Any, specs: Any) -> Any:
+    """``tree``'s leaves gathered whole one at a time (every rank of the
+    mesh takes part), each kept on the host by the writer and dropped by
+    the others, so a rank's device holds one whole leaf at a time."""
+    leaves, treedef = tree_flatten(tree)
+    writer = _writer(mesh)
+    out = []
+    for x, spec in zip(leaves, spec_leaves(specs, len(leaves))):
+        whole = gather_leaf(mesh, x, spec).detach()
+        out.append(whole.cpu() if writer else None)
+        del whole
+    return treedef.unflatten(out) if writer else None
+
+
+def _crc(arr: np.ndarray) -> int:
+    """CRC32 of ``arr``'s bytes in C order (the reference's
+    ``crc32(ascontiguousarray(arr).tobytes())``, read in place)."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 def _write(ckpt_dir: str, final: str, step: int, tree: Any,
@@ -86,7 +107,7 @@ def _write(ckpt_dir: str, final: str, step: int, tree: Any,
         meta.append({
             "shape": list(arr.shape),
             "dtype": str(arr.dtype),
-            "crc": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
+            "crc": _crc(arr),
         })
     np.savez(os.path.join(stage, f"proc{process_index:02d}.npz"), **arrays)
     manifest = {
@@ -153,7 +174,7 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
         for i, leaf in enumerate(leaves_like):
             arr = data[f"leaf{i}"]
             want = manifest["leaves"][i]
-            if zlib.crc32(np.ascontiguousarray(arr).tobytes()) != want["crc"]:
+            if _crc(arr) != want["crc"]:
                 raise IOError(f"checkpoint corruption in leaf {i}")
             t = torch.from_numpy(arr)
             if shard_specs is not None:

@@ -33,14 +33,32 @@ use, so every retry in the system is bounded and counted the same way.
   (only the survivors take part).
 
 On a mesh of ranks the runner checkpoints and restores sharded (its
-``mesh`` and ``specs``). The ranks agree after each phase of a step
-whether any of them failed, so a fault on one rank restores every rank,
-from the same step: the one the mesh's first rank finds newest.
+``mesh`` and ``specs``). On gloo it arms a
+:class:`repro_torch.dist.Fence` for the run. A rank that fails,
+anywhere in a phase of a step (between two
+collectives of the forward or the backward too), posts the fault in the
+rendezvous store; every other rank, blocked in a collective or at the
+check after the phase, sees it within a poll and fails too. Then every
+rank arrives at a rendezvous in the store, the mesh's process groups
+are made anew in place (:func:`repro_torch.dist.rebuild_mesh_comm`),
+and all restore the same step: the one the mesh's first rank finds
+newest. A rank whose process is gone stops its heartbeats: the others
+raise :class:`repro_torch.dist.RanksLost` naming it once its heartbeat
+is :data:`LOST_AFTER_S` old, and the checkpoints stay as they were, for
+:func:`elastic_remesh` and a restore on the survivors.
+
+On any other backend (NCCL) no fence is armed: the ranks agree after
+each phase of a step whether any of them failed, so a fault raised
+before or after a step's collectives restores every rank, but a rank
+that fails between two collectives leaves the others waiting in one
+until the group's timeout ends the run. Leaving an NCCL collective
+pending needs its communicator aborted, which is not tested here.
 """
 from __future__ import annotations
 
 import logging
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -53,7 +71,14 @@ from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 logger = logging.getLogger("repro_torch.fault")
 
 __all__ = ["StragglerWatch", "RetryingRunner", "elastic_remesh",
-           "choose_mesh_shape"]
+           "choose_mesh_shape", "RanksLost"]
+
+RanksLost = dist.RanksLost
+
+# After a fault, a rank of the mesh that has not arrived and whose
+# heartbeat (every 0.5 s, dist.Fence) is this old is lost; one that
+# still beats is waited for up to the process group's timeout.
+LOST_AFTER_S = 10.0
 
 
 class StragglerWatch:
@@ -168,10 +193,16 @@ class RetryingRunner:
             self.policy = RetryPolicy(max_retries=self.max_retries,
                                       scope="train.retry")
 
+    def _comm(self):
+        """This rank's :class:`repro_torch.dist.MeshComm` (None: one
+        process)."""
+        comm = getattr(self.mesh, "comm", None)
+        return None if comm is None or len(comm.ranks) < 2 else comm
+
     def _group(self):
         """The process group over every rank of the mesh (None: one
         process)."""
-        comm = getattr(self.mesh, "comm", None)
+        comm = self._comm()
         return None if comm is None else comm.axis(comm.axis_names).group
 
     def latest(self) -> Optional[int]:
@@ -183,15 +214,21 @@ class RetryingRunner:
         last = dist.broadcast_int(-1 if last is None else last, group)
         return None if last < 0 else last
 
-    def _agree(self, err: Optional[Exception], step: int
+    def _agree(self, err: Optional[Exception], step: int, fenced: bool
                ) -> Optional[Exception]:
-        """Whether any rank of the mesh failed: this rank's ``err``, or,
-        where only another rank failed, an error that says so; None when
-        every rank went through. Every rank calls it at the same point
-        of a step, so all of them restore together."""
+        """``err``, or, when this rank went through the phase, an error
+        for the fault of another rank that did not; None when every rank
+        went through. Every rank calls it at the end of each phase.
+        Under the fence a rank that failed is never waited for: the
+        others meet at a barrier, which the posted fault breaks. Without
+        it the ranks gather who failed, so all of them restore
+        together."""
         group = self._group()
         if group is None:
             return err
+        if fenced:
+            return err if err is not None else _attempt(
+                lambda: dist.barrier(group))
         failed = dist.all_gather_ints(int(err is not None), group)
         if err is None and any(failed):
             ranks = [r for r, f in enumerate(failed) if f]
@@ -199,23 +236,70 @@ class RetryingRunner:
                                f"{ranks}")
         return err
 
+    def _recover(self, fence, err: Exception, step: int) -> None:
+        """After a fault on the mesh: post it (unless it is another
+        rank's), wait for every rank in the store, and make the mesh's
+        groups anew. Raises :class:`RanksLost` naming the ranks whose
+        heartbeat is :data:`LOST_AFTER_S` old, and ``TimeoutError`` when
+        live ranks have not come within the group's timeout."""
+        if not isinstance(err, dist.PeerFault):
+            fence.post(f"rank {fence.rank} at step {step}: "
+                       f"{type(err).__name__}: {err}")
+        fence.arrive()
+        watch = StragglerWatch(heartbeat_timeout_s=LOST_AFTER_S)
+        seen: Dict[int, int] = {}
+        t_end = time.monotonic() + dist.DEFAULT_TIMEOUT_S
+        while True:
+            missing = fence.missing()
+            if not missing:
+                break
+            now = time.monotonic()
+            for r in missing:
+                beats = fence.beats(r)
+                if seen.get(r) != beats:
+                    seen[r] = beats
+                    watch.heartbeat(r, now)
+            lost = [r for r in watch.dead_hosts(now) if r in missing]
+            if lost:
+                raise RanksLost(lost, f"mesh rank(s) {sorted(lost)} lost: "
+                                f"no heartbeat for {LOST_AFTER_S} s "
+                                f"after the fault at step {step} ({err})")
+            if now > t_end:
+                raise TimeoutError(f"mesh rank(s) {missing} did not come "
+                                   f"to recover step {step} within "
+                                   f"{dist.DEFAULT_TIMEOUT_S} s")
+            time.sleep(fence.poll_s / 2)
+        fence.next_generation()
+        dist.rebuild_mesh_comm(self._comm())
+
     def run(self, state: Tuple, start_step: int, num_steps: int,
             inject_failure: Optional[Callable[[int], None]] = None
             ) -> Tuple[Tuple, Dict]:
         """state = (params, opt_state, residual). Returns final state and
         run metrics. ``inject_failure`` is the test hook.
 
-        On a mesh of ranks the ranks agree after each phase of a step
-        (taking the batch, the step itself, the checkpoint) whether any
-        of them failed, and then every rank restores and replays
-        together; so a fault that one rank raises before or after the
-        step's collectives is retried on the whole mesh. A rank that
-        fails inside a collective leaves the others waiting in it: they
-        end with the process group's timeout error."""
+        On a mesh of ranks a fault that any rank raises in any phase of a
+        step (taking the batch, the step itself between or inside its
+        collectives, the checkpoint) restores and replays on every rank
+        (see the module docstring: on gloo only, inside the step);
+        ``metrics["recovery_s"]`` holds each recovery's seconds on this
+        rank, from the fault to the restored state. A lost rank raises
+        :class:`RanksLost` on the others."""
+        comm = self._comm()
+        if comm is None or not dist.Fence.supported(self._group()):
+            return self._run(None, state, start_step, num_steps,
+                             inject_failure)
+        with dist.Fence(comm.ranks) as fence:
+            return self._run(fence, state, start_step, num_steps,
+                             inject_failure)
+
+    def _run(self, fence, state, start_step, num_steps, inject_failure):
         params, opt_state, residual = state
         step = start_step
         retries = 0
-        metrics: Dict[str, Any] = {"straggler_events": 0, "restarts": 0}
+        metrics: Dict[str, Any] = {"straggler_events": 0, "restarts": 0,
+                                   "recovery_s": []}
+        fenced = fence is not None
         while step < start_step + num_steps:
             out: Dict[str, Any] = {}
 
@@ -231,9 +315,9 @@ class RetryingRunner:
                 out["loss"] = float(out["state"][3]["loss"])  # waits
                 out["wall"] = time.monotonic() - out["t0"]
 
-            err = self._agree(_attempt(take_batch), step)
+            err = self._agree(_attempt(take_batch), step, fenced)
             if err is None:
-                err = self._agree(_attempt(take_step), step)
+                err = self._agree(_attempt(take_step), step, fenced)
             if err is None:
                 params, opt_state, residual, _ = out.pop("state")
                 if self.watch.observe_step(out["wall"]):
@@ -247,10 +331,15 @@ class RetryingRunner:
                     err = self._agree(_attempt(lambda: save_checkpoint(
                         self.ckpt_dir, step,
                         {"params": params, "opt": opt_state},
-                        mesh=self.mesh, specs=self.specs)), step)
+                        mesh=self.mesh, specs=self.specs)), step, fenced)
             if err is None:
                 continue
+            t_fault = time.monotonic()
             out.clear()
+            if err.__traceback__ is not None:    # the failed step's tensors
+                traceback.clear_frames(err.__traceback__)
+            if fence is not None:
+                self._recover(fence, err, step)
             retries += 1
             metrics["restarts"] += 1
             if self.on_failure:
@@ -267,4 +356,5 @@ class RetryingRunner:
                     step=last, mesh=self.mesh, specs=self.specs)
                 params, opt_state = restored["params"], restored["opt"]
                 step = last
+            metrics["recovery_s"].append(time.monotonic() - t_fault)
         return (params, opt_state, residual), metrics

@@ -41,9 +41,11 @@ def _entry(rank, world, store, out_dir, fn, args):
             tdist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, timeout: float = GROUP_TIMEOUT_S):
+def run_ranks(fn, world: int, *args, timeout: float = GROUP_TIMEOUT_S,
+              may_die=()):
     """``[fn(0, *args), ..., fn(world - 1, *args)]``, each in its own
-    process of a gloo group."""
+    process of a gloo group. A rank in ``may_die`` may end by a signal
+    (a rank the case kills): its result is None."""
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
         store = os.path.join(tmp, "store")
         ctx = mp.start_processes(_entry, args=(world, store, tmp, fn, args),
@@ -51,20 +53,16 @@ def run_ranks(fn, world: int, *args, timeout: float = GROUP_TIMEOUT_S):
                                  start_method="spawn")
         deadline = time.monotonic() + timeout
         try:
-            while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"{world} ranks of {fn.__name__} "
-                                       f"outlived {timeout} s")
+            if may_die:
+                _join_all(ctx, fn, world, deadline, tmp, may_die)
+            else:
+                while not ctx.join(timeout=1.0):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"{world} ranks of "
+                                           f"{fn.__name__} outlived "
+                                           f"{timeout} s")
         except mp.ProcessRaisedException as e:
-            errors = []
-            for r in range(world):
-                p = os.path.join(tmp, f"rank{r}.pkl")
-                if os.path.exists(p):
-                    with open(p, "rb") as f:
-                        status, what = pickle.load(f)
-                    if status == "error":
-                        errors.append(f"rank {r}:\n{what}")
-            raise AssertionError("\n".join(errors) or str(e)) from None
+            raise AssertionError(_errors(tmp, world) or str(e)) from None
         finally:
             for p in ctx.processes:
                 if p.is_alive():
@@ -72,8 +70,41 @@ def run_ranks(fn, world: int, *args, timeout: float = GROUP_TIMEOUT_S):
                     p.join(5)
         out = []
         for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            if r in may_die and not os.path.exists(path):
+                out.append(None)
+                continue
+            with open(path, "rb") as f:
                 status, what = pickle.load(f)
             assert status == "ok", what
             out.append(what)
         return out
+
+
+def _errors(tmp: str, world: int) -> str:
+    errors = []
+    for r in range(world):
+        p = os.path.join(tmp, f"rank{r}.pkl")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                status, what = pickle.load(f)
+            if status == "error":
+                errors.append(f"rank {r}:\n{what}")
+    return "\n".join(errors)
+
+
+def _join_all(ctx, fn, world: int, deadline: float, tmp: str,
+              may_die) -> None:
+    """Wait for every process (``ProcessContext.join`` would end the
+    others when one is killed); only ranks in ``may_die`` may end by a
+    signal, and any rank's error fails the call."""
+    while any(p.is_alive() for p in ctx.processes):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{world} ranks of {fn.__name__} outlived "
+                               f"their time")
+        time.sleep(0.5)
+    for r, p in enumerate(ctx.processes):
+        code = p.exitcode
+        if code != 0 and not (code < 0 and r in may_die):
+            raise AssertionError(_errors(tmp, world)
+                                 or f"rank {r} exited {code}")

@@ -23,6 +23,7 @@ import pickle
 import numpy as np
 import torch
 
+from _torch_sharded_cases import SCALED, smoke_config  # noqa: F401
 from repro_torch import dist
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
@@ -43,9 +44,9 @@ PROMPT, CACHE, STEPS = 8, 32, 4
 
 
 def config(arch: str, pim: bool):
-    """``arch``'s smoke config; with ``pim`` every projection on the PIM
-    path at 8 bits."""
-    cfg = get_config(arch, smoke=True)
+    """``arch``'s smoke config (or a variant of ``SCALED``); with ``pim``
+    every projection on the PIM path at 8 bits."""
+    cfg = smoke_config(arch)
     if pim:
         cfg = dataclasses.replace(cfg, pim_linear_mode="pim",
                                   pim_linear_bits=8, pim_block_mode="full")

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
@@ -37,6 +38,22 @@ from repro_torch.tree import tree_flatten, tree_leaves
 
 AXES = ("data", "model")
 OPT = dict(lr=3e-3, warmup_steps=2, total_steps=60)
+
+
+SCALED = {"whisper-small-h2": ("whisper-small", dict(n_heads=2,
+                                                     n_kv_heads=2,
+                                                     head_dim=32)),
+          "rwkv6-7b-hd32": ("rwkv6-7b", dict(rwkv_head_dim=32)),
+          "qwen3-8b-6x2": ("qwen3-8b", dict(n_heads=6, n_kv_heads=2)),
+          "granite-20b-6x1": ("granite-20b", dict(n_heads=6))}
+
+
+def smoke_config(name: str):
+    """The smoke config of an architecture, or of one of ``SCALED``'s
+    variants (an architecture's smoke config with fields changed)."""
+    arch, changes = SCALED.get(name, (name, {}))
+    cfg = get_config(arch, smoke=True)
+    return cfg.scaled(**changes) if changes else cfg
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -127,7 +144,7 @@ def step_cases(rank: int, cases, init_dir: str, keep=(), steps: int = 3):
         if mesh.comm is None:
             out.append(None)
             continue
-        cfg = get_config(arch, smoke=True)
+        cfg = smoke_config(arch)
         model = build_model(cfg, remat=remat, engine=cpu)
         opt = AdamWConfig(**OPT)
         base, base_init, _ = make_train_step(
@@ -315,27 +332,36 @@ ARCHS = ("deepseek-7b", "qwen3-8b", "gemma2-9b", "granite-20b",
          "recurrentgemma-9b", "rwkv6-7b", "whisper-small")
 
 
-def refusal_cases(rank: int):
-    """What tensor parallelism still raises for: every architecture's
-    smoke config on a model axis of 3 over ranks 0-2 (4 query heads, and
-    RWKV's 4 heads of 16, do not split 3 ways), and qwen3-8b with 6
-    query heads over 2 KV heads on it (2 query heads a rank do not align
-    with groups of 3). ``{case: "Type: message"}`` on ranks 0-2."""
+def indivisible_cases(rank: int):
+    """Every architecture's smoke config on a model axis of 3 over ranks
+    0-2 (4 query heads, and RWKV's 4 heads of 16, do not split 3 ways;
+    nor does d_model 64), and qwen3-8b with 6 query heads over 2 KV heads
+    on it (2 query heads a rank do not align with groups of 3): the loss
+    and the gathered gradients of one batch against one rank from the
+    same parameters. ``{case: (loss error, worst gradient error)}`` on
+    ranks 0-2, relative (the gradients to each leaf's norm)."""
     cpu = Engine("torch:device=cpu")
     mesh = mesh_over_ranks((1, 3), AXES, [0, 1, 2])
     if mesh.comm is None:
         return None
-    runs = [(a, get_config(a, smoke=True)) for a in ARCHS]
-    runs.append(("qwen3-8b-6x2", get_config("qwen3-8b", smoke=True).scaled(
-        n_heads=6, n_kv_heads=2)))
     out = {}
-    for name, cfg in runs:
+    for name in ARCHS + ("qwen3-8b-6x2",):
+        cfg = smoke_config(name)
         model = build_model(cfg, engine=cpu)
-        try:
-            model.loss(model.init(0), stream(cfg)(0), mesh)
-            out[name] = "ran"
-        except Exception as e:   # noqa: BLE001 -- reported to the test
-            out[name] = f"{type(e).__name__}: {e}"
+        whole = model.init(0)
+        for x in tree_leaves(whole):
+            x.requires_grad_()
+        batch = stream(cfg)(0)
+        want_loss, want = _unsharded_grads(model, whole, batch)
+        ps, _, _ = train_state_specs(mesh, abstract_params(cfg))
+        specs = spec_leaves(ps, len(want))
+        params = model.init(0, mesh=mesh)
+        _start_from(mesh, tree_leaves(whole), params, specs)
+        for x in tree_leaves(params):
+            x.requires_grad_()
+        loss, got = _sharded_grads(model, mesh, params, batch, specs)
+        out[name] = (abs(loss - want_loss) / abs(want_loss),
+                     max(rel(a, b) for a, b in zip(got, want)))
     return out
 
 
@@ -519,51 +545,166 @@ def pim_train_case(rank: int):
     return mesh.axis_sizes, out
 
 
+def _fault_in(kind: str, step_of, fail_at: int, nth: int = 2,
+              before_kill=None):
+    """A stand-in for ``repro_torch.dist.all_reduce`` on the failing
+    rank: at step ``fail_at`` (``step_of()``), the ``nth`` all-reduce of
+    the forward (``kind`` "forward") or of the backward ("backward", one
+    called from a ``backward``) raises, once, before it enters the
+    collective, so the other ranks are left waiting in it; with
+    ``kind`` "kill" the process is SIGKILLed there instead, after
+    ``before_kill()``. Returns the stand-in and a list that holds the
+    step once it fired."""
+    import signal
+    import traceback
+    real, seen, fired = dist.all_reduce, [], []
+
+    def all_reduce(x, group, op="sum"):
+        if step_of() == fail_at and not fired:
+            backward = any(f.name == "backward"
+                           for f in traceback.extract_stack())
+            if backward == (kind == "backward"):
+                seen.append(1)
+                if len(seen) == nth:
+                    fired.append(fail_at)
+                    if kind == "kill":
+                        before_kill()
+                        os.kill(os.getpid(), signal.SIGKILL)
+                    raise RuntimeError(f"simulated fault in the {kind} "
+                                       f"of step {fail_at}")
+        return real(x, group, op)
+    return all_reduce, fired
+
+
+def _runner(cfg, mesh, step, ckpt_dir, batch_at, seen, taken):
+    from repro_torch.train import RetryingRunner
+    whole = abstract_params(cfg)
+    ps, os_, _ = train_state_specs(mesh, whole)
+
+    def batch_fn(s):
+        taken["step"] = s
+        return batch_at(s)
+
+    def step_fn(*state):
+        new = step(*state)
+        seen.append((taken["step"], float(new[3]["loss"])))
+        return new
+    return RetryingRunner(step_fn=step_fn, batch_fn=batch_fn,
+                          ckpt_dir=ckpt_dir, ckpt_every=2, mesh=mesh,
+                          specs={"params": ps, "opt": os_})
+
+
 def runner_case(rank: int, root: str, fail_rank: int = 3,
                 fail_at: int = 3, steps: int = 5):
     """``RetryingRunner`` on (2, 2), checkpointing every 2 steps, run
-    twice from the same parameters: once uninterrupted, once with mesh
-    rank ``fail_rank`` alone raising before step ``fail_at``. Returns
-    each run's ``(step, loss)`` for every step taken, its restarts, and
+    from the same parameters: once uninterrupted; once with mesh rank
+    ``fail_rank`` alone raising before step ``fail_at``; once the same
+    with no fence armed (``unfenced``: the ranks agree between the
+    phases of a step, as they do on a backend other than gloo); and
+    once each with it raising between two all-reduces of that step's
+    forward, and of its backward, while the other ranks wait in a
+    collective. Returns
+    each run's ``(step, loss)`` for every step taken, its restarts, its
+    recoveries' seconds, its wall seconds, whether the fault fired, and
     (on rank 0) its gathered final parameters."""
-    from repro_torch.train import RetryingRunner
     cpu = Engine("torch:device=cpu")
     cfg = get_config("qwen3-8b", smoke=True)
     model = build_model(cfg, engine=cpu)
     mesh = mesh_over_ranks((2, 2), AXES)
     step, init_fn, _ = make_train_step(model, AdamWConfig(**OPT), mesh)
-    whole = abstract_params(cfg)
-    ps, os_, _ = train_state_specs(mesh, whole)
-    pspecs = spec_leaves(ps, len(tree_leaves(whole)))
+    ps, _, _ = train_state_specs(mesh, abstract_params(cfg))
+    pspecs = spec_leaves(ps, len(tree_leaves(abstract_params(cfg))))
     batch_at = stream(cfg)
     out = {}
-    for name, fail in (("whole", None), ("failed", fail_at)):
-        seen, taken, fired = [], {}, []
-
-        def batch_fn(s):
-            taken["step"] = s
-            return batch_at(s)
-
-        def step_fn(*state):
-            new = step(*state)
-            seen.append((taken["step"], float(new[3]["loss"])))
-            return new
+    for name in ("whole", "before", "unfenced", "forward", "backward"):
+        seen, taken, fired = [], {"step": -1}, []
 
         def inject(s):
-            if rank == fail_rank and s == fail and not fired:
+            if (name in ("before", "unfenced") and rank == fail_rank
+                    and s == fail_at and not fired):
                 fired.append(s)
                 raise RuntimeError(f"simulated loss of rank {rank}")
 
-        runner = RetryingRunner(step_fn=step_fn, batch_fn=batch_fn,
-                                ckpt_dir=os.path.join(root, name),
-                                ckpt_every=2, mesh=mesh,
-                                specs={"params": ps, "opt": os_})
-        (params, _, _), metrics = runner.run(init_fn(0), 0, steps,
-                                             inject_failure=inject)
+        runner = _runner(cfg, mesh, step, os.path.join(root, name),
+                         batch_at, seen, taken)
+        real, supported = dist.all_reduce, vars(dist.Fence)["supported"]
+        if name in ("forward", "backward") and rank == fail_rank:
+            dist.all_reduce, fired = _fault_in(name, lambda: taken["step"],
+                                               fail_at)
+        if name == "unfenced":
+            dist.Fence.supported = staticmethod(lambda group: False)
+        t0 = time.monotonic()
+        try:
+            (params, _, _), metrics = runner.run(init_fn(0), 0, steps,
+                                                 inject_failure=inject)
+        finally:
+            dist.all_reduce, dist.Fence.supported = real, supported
         final = [gather_leaf(mesh, x, sp).numpy().copy()
                  for x, sp in zip(tree_leaves(params), pspecs)]
         out[name] = {"seen": seen, "restarts": metrics["restarts"],
+                     "recovery_s": metrics["recovery_s"],
+                     "wall_s": time.monotonic() - t0, "fired": fired,
                      "final": final if rank == 0 else None}
+    return out
+
+
+def kill_case(rank: int, root: str, fail_at: int = 3, steps: int = 6):
+    """qwen3-8b smoke on (2, 2), batches of 12, checkpoints every 2
+    steps. On every rank an uninterrupted ``RetryingRunner`` run
+    (``whole``); then the same run with rank 3 SIGKILLed at its second
+    all-reduce of step ``fail_at``'s forward. Ranks 0-2 must raise
+    ``RanksLost`` naming rank 3; each then re-meshes with
+    ``elastic_remesh`` (to (3, 1)), restores the newest checkpoint
+    sharded for it and trains on to ``steps``. Returns, on ranks 0-2,
+    the whole run's losses, the lost ranks, the error and its seconds
+    after the kill,
+    the new mesh, the restored step and the losses after it."""
+    from repro_torch.train import restore_checkpoint
+    from repro_torch.train.fault import RanksLost, elastic_remesh
+    cpu = Engine("torch:device=cpu")
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = build_model(cfg, engine=cpu)
+    mesh = mesh_over_ranks((2, 2), AXES)
+    step, init_fn, _ = make_train_step(model, AdamWConfig(**OPT), mesh)
+    batch_at = stream(cfg, batch=12)
+    seen, taken = [], {"step": -1}
+    runner = _runner(cfg, mesh, step, os.path.join(root, "whole"), batch_at,
+                     seen, taken)
+    runner.run(init_fn(0), 0, steps)
+    out = {"whole": seen}
+    taken["step"], killed = -1, []
+    runner = _runner(cfg, mesh, step, os.path.join(root, "killed"),
+                     batch_at, [], taken)
+    stamp = os.path.join(root, "killed_at")
+    if rank == 3:
+        def before_kill():
+            with open(stamp, "w") as f:
+                f.write(repr(time.monotonic()))
+        dist.all_reduce, _ = _fault_in("kill", lambda: taken["step"],
+                                       fail_at, before_kill=before_kill)
+    try:
+        runner.run(init_fn(0), 0, steps)
+    except RanksLost as e:
+        killed.append((e.ranks, str(e), time.monotonic()))
+    if not killed:
+        raise AssertionError("the run went on without rank 3")
+    out["lost"], out["error"] = killed[0][:2]
+    with open(stamp) as f:
+        out["noticed_s"] = killed[0][2] - float(f.read())
+    survivors = elastic_remesh([0, 1, 2], model_parallel=2)
+    step2, init2, _ = make_train_step(model, AdamWConfig(**OPT), survivors)
+    ps, os_, _ = train_state_specs(survivors, abstract_params(cfg))
+    params, opt, res = init2(0)
+    back, at = restore_checkpoint(os.path.join(root, "killed"),
+                                  {"params": params, "opt": opt},
+                                  mesh=survivors,
+                                  specs={"params": ps, "opt": os_})
+    params, opt = back["params"], back["opt"]
+    losses = []
+    for s in range(at, steps):
+        params, opt, res, met = step2(params, opt, res, batch_at(s))
+        losses.append((s, float(met["loss"])))
+    out.update(mesh=survivors.shape, restored=at, after=losses)
     return out
 
 
@@ -573,7 +714,7 @@ def misc_cases(rank: int, stacked, root: str, ref_dir: str):
     return {"psum": psum_case(rank, stacked),
             "compress": compress_case(rank),
             "ckpt": checkpoint_cases(rank, root, ref_dir),
-            "refusals": refusal_cases(rank),
+            "indivisible": indivisible_cases(rank),
             "tp_pieces": tp_pieces(rank),
             "pim_train": pim_train_case(rank),
             "runner": runner_case(rank, os.path.join(root, "runner"))}

@@ -484,8 +484,8 @@ def test_decode_flops_match_analytic(arch, shape_name):
     share of the whole width over the 16-way model axis (what the ranks
     compute twice, such as a KV head that two ranks' query heads share,
     and the MoE's balanced routing, whose remainder goes to rank 0's
-    experts, come on top), exactly that share where the heads do not
-    split (whisper-small's record keeps the whole-width trace)."""
+    experts, come on top; whisper-small's 12 heads do not split 16 ways,
+    so its rank runs the attention whole)."""
     rec = dryrun.lower_cell(arch, shape_name, verbose=False)
     assert rec["status"] == "ok" and rec["trace"]["units"] == "all"
     cfg = get_config(arch)
@@ -499,10 +499,8 @@ def test_decode_flops_match_analytic(arch, shape_name):
     whole = rec["trace"]["full_width_flops"]
     ratio = whole * ways / want
     assert 0.99 <= ratio <= 1.01, ratio
-    if rec["trace"]["per_rank"]:
-        assert rec["flops"] * 16 >= whole
-    else:
-        assert rec["flops"] == whole / 16
+    assert rec["trace"]["per_rank"] is True
+    assert rec["flops"] * 16 >= whole
 
 
 def test_moe_cell_traces():
@@ -525,22 +523,24 @@ def test_moe_cell_traces():
 def test_train_record_with_more_microbatches_than_rows():
     """A MoE train record at smoke width on the multi-pod mesh: 256 rows
     over 32 data-parallel devices are 8 a device, fewer than its 16
-    microbatches, so it runs 8 microbatches of one row; the FLOPs are
-    the one-row trace's x 8 over the 16-way model axis, the temp bytes
-    the traced peak's (extrapolated from 2 and 3 units), which holds the
-    float32 accumulator."""
+    microbatches, so it runs 8 microbatches of one row; the whole-width
+    FLOPs are the one-row trace's x 8, the whole-width temp bytes the
+    traced peak's (extrapolated from 2 and 3 units), which holds the
+    float32 accumulator. The record itself is rank 0's (its four smoke
+    heads, which do not split 16 ways, run whole on every rank)."""
     cfg = _deep_smoke("phi3.5-moe-42b-a6.6b")
     shape = ShapeSpec("train_s", 32, 256, "train")
     rec = dryrun.cell_record(cfg, shape, make_production_mesh(
         multi_pod=True), microbatches=16)
-    # four smoke heads do not split 16 ways: the whole-width record
-    assert rec["trace"]["per_rank"] is False
+    assert rec["trace"]["per_rank"] is True
     assert rec["trace"] == {**rec["trace"], "rows": 1, "microbatches": 8,
                             "units": [2, 3, 4], "n_units": 5}
     full = dryrun.trace_step(cfg, shape, 1, microbatches=8)
-    assert rec["flops"] == full["flops"] * 8 / 16
-    assert rec["per_device"]["temp_bytes"] == \
+    assert rec["trace"]["full_width_flops"] == full["flops"] * 8
+    assert rec["trace"]["full_width_temp_bytes"] == \
         full["peak_bytes"] - full["args_bytes"]
+    assert rec["notes"] == [dryrun.NOTES,
+                            dryrun.HEADS_WHOLE_NOTE.format(4, 16)]
     one = dryrun.trace_step(cfg, shape, 1)    # no accumulator
     n_params = sum(x.numel() for x in tree_leaves(
         dryrun.abstract_params(cfg)))

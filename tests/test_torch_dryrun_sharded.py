@@ -211,9 +211,10 @@ def test_production_records(production, arch):
     batch: collectives under the reference's names only, some on every
     record (both meshes split the model and the data), and the rank's
     temp bytes at most the whole-width step's. whisper-small, whose 12
-    heads do not split 16 ways, keeps its six records (three shapes, two
-    meshes) whole-width: ``per_rank`` false, no collectives counted, and
-    the note that says so.
+    heads do not split 16 ways, has six records (three shapes, two
+    meshes), each rank 0's traced step like the others (its attention
+    over every head on every rank): ``per_rank`` true, collectives
+    counted, and the note that says its attention runs whole.
 
     One rank holds more temp than the whole-width step: recurrentgemma-9b
     decoding on 2 x 16 x 16. Its local attention's single KV head (256
@@ -227,17 +228,13 @@ def test_production_records(production, arch):
     for key, rec in recs.items():
         assert rec["status"] == "ok", key
         trace, pd = rec["trace"], rec["per_device"]
-        if arch == "whisper-small":
-            assert trace["per_rank"] is False, key
-            assert rec["collective_bytes"] is None, key
-            assert any("per_rank false" in n and "12 heads" in n
-                       for n in rec["notes"]), key
-            assert pd["temp_bytes"] == trace["full_width_temp_bytes"]
-            continue
         assert trace["per_rank"] is True, key
         assert rec["collective_bytes"], key
         assert set(rec["collective_bytes"]) <= REFERENCE_KINDS, key
-        assert rec["notes"] == [dryrun.NOTES], key
+        notes = [dryrun.NOTES]
+        if arch == "whisper-small":
+            notes.append(dryrun.HEADS_WHOLE_NOTE.format(12, 16))
+        assert rec["notes"] == notes, key
         bound = trace["full_width_temp_bytes"]
         if key == ("recurrentgemma-9b", "decode_32k", "2x16x16"):
             bound += 4 * 4096 * 256 * 2

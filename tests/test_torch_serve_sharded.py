@@ -23,11 +23,18 @@ rank's first token.
   with PIM, and qwen3-8b at batch 3, which the data axis does not split.
 * (2, 2) on four ranks: gemma2-9b, granite-20b and deepseek-moe-16b
   with PIM.
+* What the model axis does not divide: heads, run whole on every rank
+  (whisper-small smoke with 2 heads of 32 on (1, 4), a rank's 16 columns
+  cutting a head, caches over the sequence; qwen3-8b smoke with 6 query
+  heads over 2 KV heads on (1, 3)), and caches of 32 slots whole on
+  every rank of (1, 3) (that qwen3-8b, and granite-20b smoke with 6
+  query heads over one KV head, 2 a rank).
 * Against the reference's sharded serving (its ``make_serve_step(model,
   mesh)`` ``jit_for`` on forced host devices, in a subprocess, after its
   launcher's unsharded prefill): gemma2-9b on (1, 2) and (2, 2) with
-  PIM, granite-20b on (1, 2), rwkv6-7b on (2, 1), and deepseek-moe-16b
-  with PIM, recurrentgemma-9b and rwkv6-7b on (1, 2).
+  PIM, granite-20b on (1, 2), rwkv6-7b on (2, 1), deepseek-moe-16b
+  with PIM, recurrentgemma-9b and rwkv6-7b on (1, 2), and the three
+  cases the axis does not divide.
 * Pieces: the argmax over vocabulary shards with planted ties, the
   sequence-split attention combine against ``decode_attend`` on the whole
   cache, the PIM scales and the row-parallel integer product on shards,
@@ -94,14 +101,27 @@ DP_CASES = ([(a, (2, 1), False, 4) for a in ALL]
             + [("qwen3-8b", (2, 1), False, 3)])
 FOUR_CASES = [(a, (2, 2), True, 4) for a in ("gemma2-9b", "granite-20b",
                                                "deepseek-moe-16b")]
-CASES = TP_CASES + DP_CASES + FOUR_CASES
-# (1, 2) on ranks 0-1 while (2, 1) runs on ranks 2-3, then (2, 2).
-PLACEMENT = [((1, 2), [0, 1]), ((2, 1), [2, 3]), ((2, 2), [0, 1, 2, 3])]
+# What the model axis does not divide: heads, run whole on every rank
+# (whisper-small smoke with 2 heads of 32 on (1, 4), where 16 columns a
+# rank cut a head, its caches over the sequence; qwen3-8b smoke with 6
+# query heads over 2 KV heads on (1, 3), 2 a rank not aligned with groups
+# of 3), and caches of 32 slots whole on every rank of (1, 3) (that
+# qwen3-8b, and granite-20b smoke with 6 query heads over its one KV
+# head, whose heads split 2 a rank).
+UNEVEN_CASES = [("whisper-small-h2", (1, 4), False, 4),
+                ("qwen3-8b-6x2", (1, 3), False, 4),
+                ("granite-20b-6x1", (1, 3), False, 4)]
+CASES = TP_CASES + DP_CASES + FOUR_CASES + UNEVEN_CASES
+# (1, 2) on ranks 0-1 while (2, 1) runs on ranks 2-3, then (2, 2), (1, 4)
+# and (1, 3) on ranks 0-2.
+PLACEMENT = [((1, 2), [0, 1]), ((2, 1), [2, 3]), ((2, 2), [0, 1, 2, 3]),
+             ((1, 4), [0, 1, 2, 3]), ((1, 3), [0, 1, 2])]
 REF_CASES = [("gemma2-9b", (1, 2), True), ("gemma2-9b", (2, 2), True),
              ("granite-20b", (1, 2), False), ("rwkv6-7b", (2, 1), False),
              ("deepseek-moe-16b", (1, 2), True),
              ("recurrentgemma-9b", (1, 2), False),
              ("rwkv6-7b", (1, 2), False)]
+REF_CASES += [(a, m, pim) for a, m, pim, _ in UNEVEN_CASES]
 FLOAT_TOL = 1e-5
 PIM_TOL = 1e-3
 REF_CACHE_TOL = 1e-4
@@ -127,8 +147,8 @@ from repro.train import make_serve_step
 
 todo, cache, steps = json.loads(sys.argv[1])
 out = []
-for arch, (dp, tp), pim, prompts in todo:
-    cfg = get_config(arch, smoke=True)
+for arch, changes, (dp, tp), pim, prompts in todo:
+    cfg = get_config(arch, smoke=True).scaled(**changes)
     if pim:
         cfg = dataclasses.replace(cfg, pim_linear_mode="pim",
                                   pim_linear_bits=8, pim_block_mode="full")
@@ -161,8 +181,9 @@ def ref_inits(tmp_path_factory):
     """The reference's ``init(PRNGKey(0))`` of each architecture, a
     pickled numpy tree each."""
     root = tmp_path_factory.mktemp("ref_init")
-    for arch in ALL:
-        p = jax_build(jax_config(arch, smoke=True)).init(
+    for arch in ALL + [a for a, _, _, _ in UNEVEN_CASES]:
+        base, changes = cases.SCALED.get(arch, (arch, {}))
+        p = jax_build(jax_config(base, smoke=True).scaled(**changes)).init(
             jax.random.PRNGKey(0))
         with open(root / f"{arch}.pkl", "wb") as f:
             pickle.dump(jax.tree.map(np.asarray, p), f)
@@ -178,9 +199,9 @@ def ref_serving(tmp_path_factory):
     script.write_text(_REF_SCRIPT)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
-    todo = [[a, list(m), pim,
-             cases.inputs(cases.config(a, pim), 4)[0].tolist()]
-            for a, m, pim in REF_CASES]
+    todo = [list(cases.SCALED.get(a, (a, {}))) + [
+        list(m), pim, cases.inputs(cases.config(a, pim), 4)[0].tolist()]
+        for a, m, pim in REF_CASES]
     proc = subprocess.Popen(
         [sys.executable, str(script),
          json.dumps([todo, cases.CACHE, cases.STEPS]),
@@ -246,6 +267,18 @@ def test_four_rank_serving_matches_one_rank(results, i):
     model."""
     j = len(TP_CASES) + len(DP_CASES) + i
     _check(FOUR_CASES[i], _per_rank(results, j))
+
+
+@pytest.mark.parametrize("i", range(len(UNEVEN_CASES)),
+                         ids=[_ids(c) for c in UNEVEN_CASES])
+def test_indivisible_serving_matches_one_rank(results, i):
+    """Heads that the model axis does not split run whole on every rank,
+    and a cache it splits over neither its KV heads nor its slots is
+    whole on every rank (each rank writing every KV head, gathered, and
+    attending its own): tokens, logits and caches after prefill and every
+    step against one rank."""
+    j = len(TP_CASES) + len(DP_CASES) + len(FOUR_CASES) + i
+    _check(UNEVEN_CASES[i], _per_rank(results, j))
 
 
 @pytest.mark.parametrize("i", range(len(REF_CASES)),
