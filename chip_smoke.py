@@ -115,9 +115,9 @@ and raises on any failure. Phases, one line each:
     ``--arch gemma2-9b --pim --pim-scope full --batch 4 --prompt-len 32
     --gen 8 --trace``, twice on the card's default engine: prefill
     seconds, decode tokens/s, token latency p50/p99, zero recompiles
-    during decode, the K1 launches of the traced ``_profile_pass``, peak
-    memory and the trace's events; tokens in range and equal across the
-    two runs;
+    during decode, no crossbar kernel launched, peak memory and the
+    trace's events (each PIM projection's phase spans among them);
+    tokens in range and equal across the two runs;
 20. ``train_parity``: one train step (``make_train_step``, AdamW) of
     every smoke architecture, then qwen3-8b with two microbatches and
     remat and deepseek-7b with int8 error feedback, on the card's
@@ -205,8 +205,8 @@ launch counts set to 0 before each).
     -m torch.distributed.run`` with ``--dist-backend gloo``, two ranks
     sharing the card, every projection on the PIM path (``--pim
     --pim-scope full``), batch 4, prompt 32, 8 tokens: (a) gemma2-9b at
-    full width and depth on (1, 2), traced (``_profile_pass`` launches K1
-    on rank 0), against the tokens of phase 19's one-rank run; (b)
+    full width and depth on (1, 2), traced on rank 0, against the tokens
+    of phase 19's one-rank run; (b)
     granite-20b at full width (one KV head: its caches split over the
     sequence) cut to 4 of 52 layers on (1, 2) and (c) gemma2-9b cut to
     6 layers on (2, 1), each against a one-rank run of the launcher at
@@ -224,8 +224,8 @@ launch counts set to 0 before each).
     start): (a) deepseek-moe-16b at full width (64 experts, top 6, 2
     shared, vocabulary 102,400) cut to 4 of 28 layers, served with every
     projection on the PIM path (experts over the model axis, their
-    scales over the whole stack), traced (``_profile_pass`` launches K1
-    on rank 0); (b) deepseek-moe-16b cut to 2 layers, trained 3 steps of
+    scales over the whole stack), traced on rank 0; (b)
+    deepseek-moe-16b cut to 2 layers, trained 3 steps of
     4 x 1,024 tokens in 2 microbatches; (c) rwkv6-7b cut to 4 layers,
     (d) recurrentgemma-9b cut to 3 layers (one ``rrl`` unit) and (e)
     whisper-small at full width and depth with its frames, served: tokens
@@ -1511,10 +1511,10 @@ def model_consistency_phase(dev) -> None:
 def model_serve_phase(dev) -> tuple:
     """Phase 19: the launcher's model mode on the card's default engine,
     twice: MODEL_ARCH at full width and depth, every projection on the
-    PIM path, traced (so ``_profile_pass`` launches K1). Checks zero
-    recompiles during decode, K1 launched, tokens in range and the two
-    runs' tokens identical. Returns the K1 launches of both runs, the
-    tokens and the first run's peak bytes."""
+    PIM path, traced. Checks zero recompiles during decode, no crossbar
+    kernel launched, the PIM phase spans in the trace, tokens in range
+    and the two runs' tokens identical. Returns the tokens and the first
+    run's peak bytes."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.kernels.crossbar_step import (crossbar_run,
@@ -1526,7 +1526,6 @@ def model_serve_phase(dev) -> tuple:
             "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
             "--gen", str(SERVE_GEN), "--trace", str(trace)]
     runs, peaks = [], []
-    k1 = 0
     t_phase = time.perf_counter()
     for i in (1, 2):
         gc.collect()
@@ -1541,15 +1540,17 @@ def model_serve_phase(dev) -> tuple:
             obs.disable()
         wall = time.perf_counter() - t0
         launches = crossbar_run_packed.launches
-        check(launches >= 1 and crossbar_run.launches == 0,
+        check(launches == 0 and crossbar_run.launches == 0,
               f"model_serve: K1 launched {launches} times, K2 "
               f"{crossbar_run.launches}")
-        k1 += launches
         events = json.loads(trace.read_text())["traceEvents"]
         spans = {}
         for e in events:
             if e.get("ph") == "X":
                 spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+        check({"model.decode_step", "pim.linear", "pim.weight",
+               "pim.activation", "pim.product", "pim.dequant"} <= set(spans),
+              f"model_serve: spans {sorted(spans)}")
         top = dict(sorted(spans.items(), key=lambda kv: -kv[1])[:6])
         obs.reset_trace()
         trace.unlink()
@@ -1569,7 +1570,7 @@ def model_serve_phase(dev) -> tuple:
               decode_tok_s=round(SERVE_BATCH * run.tokens_per_s, 3),
               token_p50_us=round(run.latency_us(50), 1),
               token_p99_us=round(run.latency_us(99), 1),
-              recompiles=run.recompiles, k1_launches=launches,
+              recompiles=run.recompiles,
               peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
               trace_events=len(events), wall_s=round(wall, 3),
               span_s=json.dumps({k: round(v, 4) for k, v in top.items()}))
@@ -1579,7 +1580,7 @@ def model_serve_phase(dev) -> tuple:
           sample=json.dumps(runs[0].tokens[0].tolist()),
           seconds=round(time.perf_counter() - t_phase, 1))
     torch.cuda.empty_cache()
-    return k1, runs[0].tokens, peaks[0]
+    return runs[0].tokens, peaks[0]
 
 
 def train_models(cfg, dev, remat: bool = False):
@@ -2328,9 +2329,9 @@ def serve_one_rank(argv: list) -> tuple:
 
 
 def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
-                        one_peak: int) -> int:
+                        one_peak: int) -> None:
     """Phase 28: the serving launcher on meshes of two ranks sharing the
-    card (see the module docstring). Returns run a's K1 launches."""
+    card (see the module docstring)."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import _tree_bytes, abstract_states
@@ -2344,7 +2345,6 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
                if probe["gloo_cuda"].get(k) != "ok"}
     check(not refused, f"serve_sharded: gloo refuses CUDA tensors for "
                        f"{refused}")
-    k1 = 0
     runs, launches = [], []
     for run_id, arch, layers, (dp, tp) in SERVE_SHARDED_RUNS:
         cfg = get_config(arch)
@@ -2378,7 +2378,6 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
     for run_id, cfg, dp, tp, want, peak, summary, trace in runs:
         got = json.loads(summary.read_text())
         summary.unlink()
-        k1_run = got["launches"]["K1"]
         spans = {}
         if trace.exists():          # rank 0's spans, the collectives' too
             for e in json.loads(trace.read_text())["traceEvents"]:
@@ -2406,10 +2405,8 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
               f"serve_sharded {run_id}: placed {got['param_bytes']} and "
               f"{got['state_bytes']}, the dry-run counts {p_bytes} and "
               f"{s_bytes}")
-        if run_id == "a":
-            check(k1_run >= 1 and got["launches"]["K2"] == 0,
-                  f"serve_sharded a: rank 0 launched {got['launches']}")
-            k1 += k1_run
+        check(got["launches"] == {"K1": 0, "K2": 0},
+              f"serve_sharded {run_id}: rank 0 launched {got['launches']}")
         phase("serve_sharded", run=run_id, mesh=name, ranks=2,
               arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
               kv_heads=cfg.n_kv_heads, pim_scope="full",
@@ -2417,7 +2414,6 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
                       "through the host)",
               tokens_equal=True, sample=json.dumps(got["tokens"][0]),
               recompiles=json.dumps(got["rank_recompiles"]),
-              k1_launches=k1_run,
               param_bytes=json.dumps(got["param_bytes"]),
               state_bytes=json.dumps(got["state_bytes"]),
               spec_count=json.dumps([p_bytes, s_bytes]),
@@ -2439,13 +2435,12 @@ def serve_sharded_phase(smi: str, probe: dict, one_tokens: np.ndarray,
     obs.reset_trace()
     phase("serve_sharded", ranks_wall_s=round(wall, 1),
           seconds=round(time.perf_counter() - t_phase, 1))
-    return k1
 
-def tp_families_phase(smi: str) -> int:
+def tp_families_phase(smi: str) -> None:
     """Phase 29: the launchers on (1, 2) over two ranks sharing the card
     (all runs in one launch of the ranks) for MoE, RWKV-6, RG-LRU and
     enc-dec, each against a one-rank run in this process (see the module
-    docstring). Returns run a's K1 launches."""
+    docstring)."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import (_tree_bytes, abstract_states,
@@ -2456,7 +2451,6 @@ def tp_families_phase(smi: str) -> int:
     t_phase = time.perf_counter()
     backend = ("gloo (both ranks on one card, every collective through "
                "the host)")
-    k1 = 0
     runs, launches = [], []
     for run_id, kind, arch, layers, extra in TP_FAMILY_RUNS:
         cfg = get_config(arch)
@@ -2545,15 +2539,11 @@ def tp_families_phase(smi: str) -> int:
                   == [[c] * 2 for c in spec_count],
                   f"{name}: placed {got['param_bytes']} and "
                   f"{got['state_bytes']}, the dry-run counts {spec_count}")
-            k1_run = got["launches"]["K1"]
-            if run_id == "a":
-                check(k1_run >= 1 and got["launches"]["K2"] == 0,
-                      f"{name}: rank 0 launched {got['launches']}")
-                k1 += k1_run
+            check(got["launches"] == {"K1": 0, "K2": 0},
+                  f"{name}: rank 0 launched {got['launches']}")
             fields.update(
                 tokens_equal=True, sample=json.dumps(got["tokens"][0]),
                 recompiles=json.dumps(got["rank_recompiles"]),
-                k1_launches=k1_run,
                 param_bytes=json.dumps(got["param_bytes"]),
                 state_bytes=json.dumps(got["state_bytes"]),
                 prefill_s_shared_card=round(got["prefill_s"], 4),
@@ -2570,7 +2560,6 @@ def tp_families_phase(smi: str) -> int:
     obs.reset_trace()
     phase("tp_families", ranks_wall_s=round(wall, 1),
           seconds=round(time.perf_counter() - t_phase, 1))
-    return k1
 
 def fault_rank(out_dir: str, kill: bool) -> None:
     """One rank of phase 30 (``--fault-rank OUT [--kill]``): its runs
@@ -3305,8 +3294,7 @@ def run_phases() -> None:
     # -------------------------------------------- 17-19. the model slice ----
     model_parity_phase(dev)
     model_consistency_phase(dev)
-    k1_serve, serve_tokens, serve_peak = model_serve_phase(dev)
-    main_launches["K1"] += k1_serve
+    serve_tokens, serve_peak = model_serve_phase(dev)
 
     # -------------------------------------------- 20-23. the training slice ----
     train_parity_phase(dev)
@@ -3332,11 +3320,10 @@ def run_phases() -> None:
     elastic_card_phase()
 
     # ---------------------------------------- 28. sharded serving ----
-    main_launches["K1"] += serve_sharded_phase(smi, probe, serve_tokens,
-                                               serve_peak)
+    serve_sharded_phase(smi, probe, serve_tokens, serve_peak)
 
     # ------------------------------- 29. tensor-parallel families ----
-    main_launches["K1"] += tp_families_phase(smi)
+    tp_families_phase(smi)
 
     # ------------------------- 30-31. faults and heads on a mesh ----
     fault_sharded_phase(smi)

@@ -25,10 +25,13 @@ onto.
 :meth:`Engine.linear` and :meth:`Engine.ragged_linear` are the PIM
 linear layers: quantize, compile the co-scheduled MAC group through the
 shared cache, and take the integer product — exact in integers
-(:func:`repro_torch.pim.quant.qmatmul_exact`), or through the
+(:func:`repro_torch.pim.quant.qlinear_exact`, the integers of
+:func:`~repro_torch.pim.quant.qmatmul_exact`), or through the
 bit-serial matmul kernel K3
 (:func:`repro_torch.kernels.bitserial_matmul.bitserial_matmul`) with
-``use_pallas=True`` — on the device of the input.
+``use_pallas=True`` — on the device of the input. In ``pim`` mode a
+call is a ``pim.linear`` (``pim.ragged_linear``) span over the phase
+spans of :mod:`repro_torch.pim.quant`.
 
 The default backend is :class:`~repro_torch.engine.backends.TorchBackend`
 on CUDA with bit-plane packing: the port runs on the card unless the
@@ -723,8 +726,7 @@ class Engine:
         integer ``(prod - corr)``, as int64, before it is dequantised.
         The result is then the whole product of this rank's rows.
         """
-        from repro_torch.pim.quant import (amax_of, dequantize,
-                                           qmatmul_exact, quantize)
+        from repro_torch.pim.quant import dequantize, qlinear_exact
         x, w, b = self._linear_device(x, w, b)
         if mode == "float":
             y = dist.reduce_from_parallel(x @ w, k_group)
@@ -732,36 +734,23 @@ class Engine:
             in_dim = x.shape[-1]
             lead = x.shape[:-1]
             x2 = x.reshape(-1, in_dim)
-            xa, wa = _global_amax(amax_of(x2), amax_of(w, 0), x_group,
-                                  k_group)
-            xq = quantize(x2, n_bits, amax=xa)
-            wq = quantize(w, n_bits, axis=0, amax=wa)
             if mode == "fake":
+                xq, wq = _quantized(x2, w, n_bits, 0, x_group, k_group)
                 y = dist.reduce_from_parallel(dequantize(xq) @ dequantize(wq),
                                               k_group)
-            elif use_pallas:
-                # The schedule accounted in-memory: the co-scheduled K-MAC
-                # group, compiled once per (width, K) through the shared
-                # cache; K is clamped to the crossbar's column budget.
-                self._compile_mac_group(n_bits)
-                from repro_torch.kernels.bitserial_matmul import (
-                    bitserial_matmul)
-                wf = wq.q.to(torch.float32)
-                prod = bitserial_matmul(xq.q.contiguous(), wf.contiguous(),
-                                        n_bits)
-                k = x2.shape[-1]
-                corr = (xq.zero * wf.sum(dim=0, keepdim=True)
-                        + wq.zero * xq.q.to(torch.float32).sum(
-                            dim=-1, keepdim=True)
-                        - k * xq.zero * wq.zero)
-                acc = prod - corr
-                if k_group is not None:   # integers below 2^24: exact
-                    acc = dist.all_reduce(acc.to(torch.int64), k_group
-                                          ).to(torch.float32)
-                y = acc * xq.scale * wq.scale
             else:
-                self._compile_mac_group(n_bits)
-                y = qmatmul_exact(xq, wq, k_group)
+                with obs.span("pim.linear", bits=n_bits) as sp:
+                    if sp:
+                        sp.set(rows=x2.shape[0], k=in_dim, n=w.shape[-1])
+                    # The schedule accounted in-memory: the co-scheduled
+                    # K-MAC group, compiled once per (width, K) through the
+                    # shared cache; K is clamped to the crossbar's column
+                    # budget.
+                    self._compile_mac_group(n_bits)
+                    if use_pallas:
+                        y = _bitserial_linear(x2, w, n_bits, x_group, k_group)
+                    else:
+                        y = qlinear_exact(x2, w, n_bits, x_group, k_group)
             y = y.reshape(*lead, w.shape[-1])
         else:
             raise ValueError(mode)
@@ -790,37 +779,59 @@ class Engine:
         the experts are (expert parallelism: ``we`` holds this rank's
         experts, ``xs`` the rows routed to them, ``counts`` their
         segments). ``xs``'s amax is the maximum over both, ``we``'s over
-        ``k_group`` (the two in one collective, :func:`_global_amax`).
+        ``k_group`` (the two in one collective,
+        :func:`repro_torch.pim.quant.global_amax`).
         Each expert's integer product is then the unsplit one's, bit for
         bit.
         """
-        from repro_torch.pim.quant import (amax_of, dequantize,
-                                           qragged_matmul_exact, quantize,
+        from repro_torch.pim.quant import (dequantize, qragged_linear_exact,
                                            ragged_dot)
         xs, we = self._linear_device(xs, we)
         if mode == "float":
             return ragged_dot(xs, we, counts)
-        if mode not in ("fake", "pim"):
-            raise ValueError(mode)
-        xa, wa = _global_amax(amax_of(xs), amax_of(we), x_group, k_group)
-        xq = quantize(xs, n_bits, amax=xa)
-        wq = quantize(we, n_bits, amax=wa)
         if mode == "fake":
+            xq, wq = _quantized(xs, we, n_bits, None, x_group, k_group)
             return ragged_dot(dequantize(xq), dequantize(wq), counts)
-        self._compile_mac_group(n_bits)
-        return qragged_matmul_exact(xq, wq, counts)
+        if mode != "pim":
+            raise ValueError(mode)
+        with obs.span("pim.ragged_linear", bits=n_bits) as sp:
+            if sp:
+                sp.set(rows=xs.shape[0], k=we.shape[1], n=we.shape[2],
+                       experts=we.shape[0])
+            self._compile_mac_group(n_bits)
+            return qragged_linear_exact(xs, we, counts, n_bits, x_group,
+                                        k_group)
 
 
-def _global_amax(xa: torch.Tensor, wa: torch.Tensor, x_group, k_group):
-    """``x``'s amax (a scalar) and ``w``'s amax (its column amax (1, N),
-    or a scalar) over the ranks that split them: ``x``'s over
-    ``x_group``, then both over ``k_group`` in one collective."""
-    xa = dist.max_from_parallel(xa, x_group)
-    if k_group is None:
-        return xa, wa
-    both = dist.max_from_parallel(torch.cat([xa.reshape(1), wa.reshape(-1)]),
-                                  k_group)
-    return both[0], both[1:].reshape(wa.shape)
+def _quantized(x: torch.Tensor, w: torch.Tensor, n_bits: int, w_axis,
+               x_group, k_group):
+    """Both operands quantized, each amax over the ranks that split it
+    (:func:`repro_torch.pim.quant.global_amax`): ``x`` with one scale,
+    ``w`` with one per slice along ``w_axis`` (None: one)."""
+    from repro_torch.pim.quant import amax_of, global_amax, quantize
+    xa, wa = global_amax(amax_of(x), amax_of(w, w_axis), x_group, k_group)
+    return (quantize(x, n_bits, amax=xa),
+            quantize(w, n_bits, axis=w_axis, amax=wa))
+
+
+def _bitserial_linear(x: torch.Tensor, w: torch.Tensor, n_bits: int,
+                      x_group, k_group) -> torch.Tensor:
+    """The PIM linear's integer product through the bit-serial matmul
+    kernel K3 in float32, as the reference takes it through its Pallas
+    kernel: exact only while ``K (2^n - 1)^2 < 2^24``."""
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
+    xq, wq = _quantized(x, w, n_bits, 0, x_group, k_group)
+    wf = wq.q.to(torch.float32)
+    prod = bitserial_matmul(xq.q.contiguous(), wf.contiguous(), n_bits)
+    k = x.shape[-1]
+    corr = (xq.zero * wf.sum(dim=0, keepdim=True)
+            + wq.zero * xq.q.to(torch.float32).sum(dim=-1, keepdim=True)
+            - k * xq.zero * wq.zero)
+    acc = prod - corr
+    if k_group is not None:   # integers below 2^24: exact
+        acc = dist.all_reduce(acc.to(torch.int64), k_group
+                              ).to(torch.float32)
+    return acc * xq.scale * wq.scale
 
 
 # ------------------------------------------------------ shared default ----

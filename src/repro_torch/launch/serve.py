@@ -11,10 +11,15 @@ per-token latency percentiles. With ``--pim`` (on by default under
 :class:`~repro_torch.engine.Engine`; ``--pim-scope ffn|full`` adds the FFN
 and then the attention q/k/v/o projections, lowered by
 :func:`repro_torch.pim.plan_block` onto co-scheduled crossbar groups that
-compile once: a recompile during decode fails the run. ``--trace`` also
-runs one real crossbar pass of the serve MAC group (``_profile_pass``, K1
-on the card) and merges the groups' modeled-cycle waterfalls into the
-trace. On the card::
+compile once: a recompile during decode fails the run. ``--trace``
+writes the run's spans: the prefill and each decode step
+(``serve.prefill``, ``serve.decode_step``), the model's own
+(``model.forward``, ``model.decode_step``) and, under them, each PIM
+projection (``pim.linear``) with its phases (``pim.weight``,
+``pim.activation``, ``pim.product``, ``pim.dequant``), and merges the
+groups' modeled-cycle waterfalls into the trace, from where its spans
+start. (Device time per span comes only under ``torch.profiler``; see
+:mod:`repro_torch.obs.trace`.) On the card::
 
   python -m repro_torch.launch.serve --arch gemma2-9b --pim \
       --pim-scope full --trace /tmp/t.json
@@ -59,9 +64,8 @@ taken over the whole tensors. Two ranks sharing one card need gloo::
       --pim --pim-scope full --model-parallel 2 --dist-backend gloo
 
 Every rank plans the PIM scopes and gates compile-once (the run fails if
-any rank recompiled during decode); only rank 0 logs at INFO, traces,
-runs ``_profile_pass`` and writes ``--trace``, ``--metrics`` and
-``--summary``. Traffic mode serves on one rank, as the reference's does.
+any rank recompiled during decode); only rank 0 logs at INFO, traces
+and writes ``--trace``, ``--metrics`` and ``--summary``. Traffic mode serves on one rank, as the reference's does.
 
 The port's copy of ``repro.launch.serve``. The reference's deprecated
 ``--pim-k`` (pin the batch width) is dropped: ``--traffic-slots`` clamps
@@ -330,8 +334,8 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
     Prefill is ``model.forward`` with states; decode is
     :func:`repro_torch.train.make_serve_step`'s step, as in the
     reference's launcher. Spans ``serve.prefill`` and
-    ``serve.decode_step``; every step's latency also lands in the
-    ``serve.token_latency_us`` histogram.
+    ``serve.decode_step``; every step's latency is in the run's
+    ``token_latency_us``.
 
     With a ``mesh`` of ranks every rank of it calls this with the whole
     ``prompts`` (and ``frames``) and this rank's shards of ``params``;
@@ -360,7 +364,6 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
     pos0 = torch.zeros((b, 1), dtype=torch.int32, device=prompts.device)
     step = jit_for(params, states, {"token": tok, "position": pos0})
     pre = engine.stats()
-    tok_lat = obs.histogram("serve.token_latency_us")
     lat: List[float] = []
     t0 = time.perf_counter()
     for t in range(gen - 1):
@@ -370,7 +373,6 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
             tok, states = step(params, states, tok, pos)
             out.append(tok.cpu().numpy())  # device sync: real step time
         lat.append((time.perf_counter() - s0) * 1e6)
-        tok_lat.observe(lat[-1])
     decode_s = time.perf_counter() - t0
     run = GreedyRun(np.concatenate(out, axis=1), prefill_s, decode_s, lat,
                     pre, engine.stats())
@@ -387,31 +389,14 @@ def serve_model(model, params, prompts: torch.Tensor, engine, *, gen: int,
     return run
 
 
-def _profile_pass(engine, n_bits: int) -> None:
-    """One real crossbar pass of the serve MAC group, so the exported
-    trace holds the exec.run -> marshal/pack/kernel/unpack breakdown (the
-    decode loop computes the MAC semantics with torch matmuls, not
-    through Executable.run). Only called under --trace, so the untraced
-    serve path pays nothing. On the card's default engine the pass is a
-    K1 launch."""
-    with obs.span("serve.profile_pass", n_bits=n_bits):
-        rows = 8
-        a = np.arange(1, rows + 1, dtype=object)
-        zeros = np.zeros(rows, dtype=object)
-        batch = engine._mac_inputs(n_bits, a, a, zeros, zeros)
-        k = engine.effective_coschedule_k("mac", n_bits)
-        if k >= 2:
-            engine.compile_batch("mac", n_bits, k).run([batch] * k)
-        else:
-            engine.compile("mac", n_bits).run(batch)
-
-
 def _export_waterfalls(engine, plan, n_bits: int) -> None:
     """Merge modeled-cycle waterfall tracks into the trace: one process
     row per co-scheduled plan group (fused program occupancy +
     switching) and one for the LM-head MAC group. Groups placed on a
     device hierarchy (``--device-config``) carry their coordinate as a
-    counter-track prefix."""
+    counter-track prefix. The tracks start where the trace's spans
+    start."""
+    t0 = obs.get_tracer().start_us()
     pid = 2
     seen = set()
     groups = list(plan.groups) if plan is not None else []
@@ -420,20 +405,28 @@ def _export_waterfalls(engine, plan, n_bits: int) -> None:
         if gex is None or id(gex.program) in seen:
             continue
         seen.add(id(gex.program))
-        obs.add_events(obs.waterfall_events(
+        obs.add_events(_from(t0, obs.waterfall_events(
             gex.program, packed=gex.packed,
             name=f"{g.scope}: {gex.program.name}", pid=pid,
             cycle_ns=engine.crossbar.cycle_ns,
-            track=str(g.coord) if g.coord is not None else None))
+            track=str(g.coord) if g.coord is not None else None)))
         pid += 1
     k = engine.effective_coschedule_k("mac", n_bits)
     exe = (engine.compile_batch("mac", n_bits, k) if k >= 2
            else engine.compile("mac", n_bits))
     if id(exe.program) not in seen:
-        obs.add_events(obs.waterfall_events(
+        obs.add_events(_from(t0, obs.waterfall_events(
             exe.program, packed=exe.packed,
             name=f"lm_head MAC: {exe.program.name}", pid=pid,
-            cycle_ns=engine.crossbar.cycle_ns))
+            cycle_ns=engine.crossbar.cycle_ns)))
+
+
+def _from(t0_us: float, events: List[dict]) -> List[dict]:
+    """``events`` on a modeled axis from 0, moved to start at ``t0_us``."""
+    for e in events:
+        if "ts" in e:
+            e["ts"] += t0_us
+    return events
 
 
 def _log_pim(args, cfg, engine, plan, device, run: GreedyRun) -> None:
@@ -589,7 +582,6 @@ def _run_model(args) -> GreedyRun:
         return run
     if args.trace:
         if pim:
-            _profile_pass(engine, cfg.pim_linear_bits)
             _export_waterfalls(engine, plan, cfg.pim_linear_bits)
         n_ev = obs.export_trace(args.trace)
         log.info("trace: %d events -> %s", n_ev, args.trace)
@@ -723,9 +715,12 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="enable span tracing and write a Chrome "
                          "trace-event file (chrome://tracing or "
-                         "ui.perfetto.dev); in model mode with PIM also "
-                         "one real crossbar pass of the MAC group and the "
-                         "groups' crossbar-waterfall counter tracks")
+                         "ui.perfetto.dev); in model mode the model's "
+                         "steps and each PIM projection's phases (weight, "
+                         "activation, product, dequant) and, with PIM, "
+                         "the groups' "
+                         "crossbar-waterfall counter tracks; no crossbar "
+                         "pass is run for it")
     ap.add_argument("--metrics", default=None, metavar="OUT.json",
                     help="write the obs metrics snapshot (counters, "
                          "gauges, latency histograms) as JSON")

@@ -16,6 +16,12 @@ entropy is vocab-parallel. ``init``, ``forward``, ``decode_step`` and
 ``init_decode_state`` take the mesh too: this rank's shards of the
 parameters (drawn shard by shard), its rows, and its shards of the
 decode states as ``state_shardings`` places them.
+
+``forward`` and ``decode_step`` are the spans ``model.forward``
+(``tokens``) and ``model.decode_step`` (``batch``) of
+:mod:`repro_torch.obs` (under ``torch.profiler`` with the device
+time of the kernels they launch): the whole step that the PIM phase
+spans under them are shares of.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from repro_torch import dist
+from repro_torch import dist, obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_map_with_path
 
@@ -103,11 +109,17 @@ def build_model(cfg: ModelConfig, remat: bool = False, *, engine=None,
         return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
 
     def fwd(params, tokens, **kw):
-        return T.forward(cfg, params, tokens, engine=engine, **kw)
+        with obs.span("model.forward") as sp:
+            if sp:
+                sp.set(tokens=tokens.numel())
+            return T.forward(cfg, params, tokens, engine=engine, **kw)
 
     def decode(params, token, position, states, mesh=None):
-        return T.decode_step(cfg, params, token, position, states,
-                             engine=engine, mesh=mesh)
+        with obs.span("model.decode_step") as sp:
+            if sp:
+                sp.set(batch=token.shape[0])
+            return T.decode_step(cfg, params, token, position, states,
+                                 engine=engine, mesh=mesh)
 
     def init_state(batch, cache_len, dtype=torch.float32, mesh=None):
         return T.init_decode_state(cfg, batch, cache_len, dtype, device=dev,

@@ -3,10 +3,13 @@
 Three pieces, one import surface:
 
 * **Spans** (:mod:`.trace`) — ``with obs.span("compile.fuse", op=...):``
-  wall-time intervals from the compiler, cache, engine, executors, and
-  serve loop, exported as Chrome trace-event JSON
-  (``obs.export_trace(path)``; open in chrome://tracing or Perfetto).
-  Disabled by default and near-free when disabled.
+  wall-time intervals from the compiler, cache, engine, executors, the
+  PIM linear, the model's steps and the serve loop, exported as Chrome
+  trace-event JSON (``obs.export_trace(path)``; open in chrome://tracing
+  or Perfetto) or read as events (``obs.events()``). They record while
+  the tracer is enabled or ``torch.profiler`` records; under the
+  profiler also as its ranges, with the device time of the kernels
+  launched inside each (``args.device_us``). Near-free otherwise.
 * **Metrics** (:mod:`.metrics`) — process-wide counters / gauges /
   streaming histograms; ``obs.dump()`` snapshots everything (a superset
   of ``Engine.stats()``), ``obs.write_metrics(path)`` saves it.
@@ -31,14 +34,15 @@ from typing import Optional
 from .logging import get_logger, setup_logging
 from .metrics import (Counter, Gauge, Histogram, Registry,
                       WindowedHistogram, get_registry)
-from .trace import NULL_SPAN, PID_SPANS, Span, Tracer, get_tracer
+from .trace import NULL_SPAN, PID_SPANS, Span, Tracer, _profiler, get_tracer
 from .waterfall import (cycle_occupancy, switching_activity,
                         switching_profile, waterfall_events)
 
 __all__ = [
     # trace
     "span", "instant", "track", "enable", "disable", "enabled",
-    "reset_trace", "add_events", "export_trace", "get_tracer", "Tracer",
+    "reset_trace", "add_events", "events", "export_trace", "get_tracer",
+    "Tracer",
     "Span", "NULL_SPAN", "PID_SPANS",
     # metrics
     "counter", "gauge", "histogram", "windowed_histogram", "dump",
@@ -55,9 +59,11 @@ __all__ = [
 # --------------------------------------------------------------- spans ----
 def span(name: str, cat: str = "repro", **args):
     """Module-level alias for ``get_tracer().span(...)`` — the form
-    instrumented code uses. One attribute check when tracing is off."""
+    instrumented code uses. Two attribute checks when neither the tracer
+    nor ``torch.profiler`` records: the gate of :meth:`Tracer.span`, kept
+    here too so that the disabled path makes no second call."""
     t = get_tracer()
-    if not t.enabled:
+    if not t.enabled and not _profiler._is_profiler_enabled:
         return NULL_SPAN
     return t.span(name, cat, **args)
 
@@ -97,6 +103,12 @@ def reset_trace() -> None:
 def add_events(events) -> None:
     """Append pre-built trace events."""
     get_tracer().add_events(events)
+
+
+def events() -> list:
+    """Every event the process-wide tracer holds (see
+    :meth:`Tracer.events`)."""
+    return get_tracer().events()
 
 
 def export_trace(path: str) -> int:

@@ -12,6 +12,29 @@ float64 matrix products cast to int64 (torch has no int32 matrix product
 on CUDA); every partial sum is an integer below ``K (2^n - 1)^2``, so
 they are exact while that stays below ``2^53``, which
 :func:`qmatmul_exact` checks. CPU and CUDA take the same code path.
+
+:func:`qlinear_exact` and :func:`qragged_linear_exact` are the engine's
+PIM layers from float operands: the same integers as quantizing both and
+calling :func:`qmatmul_exact` (:func:`qragged_matmul_exact`), with the
+work in phase spans (:mod:`repro_torch.obs`; under ``torch.profiler``
+each with the device time of the kernels it launches):
+
+* ``pim.weight`` — every operation whose only input is the weight: its
+  amax, :func:`quantize`, its int64 sums over K and (dense) its float64
+  levels; ``args.bytes`` is the weight's bytes. On a row-parallel
+  projection (``k_group``) its amax joins the activation's in one
+  collective and stays in ``pim.activation``.
+* ``pim.activation`` — the activation's amax (with the collective, when
+  a group is given), quantize, its int64 row sums and (dense) float64
+  levels; ``args.bytes`` is the activation's bytes.
+* ``pim.dispatch`` (ragged) — the counts' copy to the host
+  (:func:`_counts`, the sync of a ragged call).
+* ``pim.product`` — the float64 GEMM and its cast to int64; for a ragged
+  call the per-expert loop of :func:`ragged_dot`, whose per-expert
+  float64 casts of both operands stay inside it.
+* ``pim.dequant`` — ``prod - corr`` (summed over ``k_group``), the int32
+  and float32 casts, the scales (ragged: the per-expert sums spread over
+  the segments, and the rows past the counts zeroed).
 """
 from __future__ import annotations
 
@@ -19,10 +42,11 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from repro_torch import dist
+from repro_torch import dist, obs
 
-__all__ = ["QTensor", "amax_of", "quantize", "dequantize", "qmatmul_exact",
-           "qragged_matmul_exact", "ragged_dot"]
+__all__ = ["QTensor", "amax_of", "global_amax", "quantize", "dequantize",
+           "qmatmul_exact", "qragged_matmul_exact", "ragged_dot",
+           "qlinear_exact", "qragged_linear_exact"]
 
 
 class QTensor(NamedTuple):
@@ -46,6 +70,20 @@ def amax_of(x: torch.Tensor, axis=None) -> torch.Tensor:
             return x.new_zeros(())
         return x.abs().amax()
     return x.abs().amax(dim=axis, keepdim=True)
+
+
+def global_amax(xa: torch.Tensor, wa: Optional[torch.Tensor], x_group,
+                k_group):
+    """``x``'s amax (a scalar) and ``w``'s amax (its column amax (1, N),
+    or a scalar) over the ranks that split them: ``x``'s over
+    ``x_group``, then both over ``k_group`` in one collective (``wa``
+    None when ``k_group`` is: the weight's own is whole)."""
+    xa = dist.max_from_parallel(xa, x_group)
+    if k_group is None:
+        return xa, wa
+    both = dist.max_from_parallel(torch.cat([xa.reshape(1), wa.reshape(-1)]),
+                                  k_group)
+    return both[0], both[1:].reshape(wa.shape)
 
 
 def quantize(x: torch.Tensor, n_bits: int = 8, axis=None,
@@ -81,6 +119,22 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
 
 
+def _sums(q: torch.Tensor, dim: int) -> torch.Tensor:
+    """Integer levels summed along ``dim`` (kept) as int64: a term of the
+    offset correction."""
+    return q.to(torch.int64).sum(dim=dim, keepdim=True)
+
+
+def _dequant(xq: QTensor, wq: QTensor, prod: torch.Tensor,
+             xsum: torch.Tensor, wsum: torch.Tensor, group) -> torch.Tensor:
+    """``prod`` less the offset correction, summed over ``group`` as
+    int64, then through int32 to float32 and the two scales."""
+    k = xq.q.shape[-1]
+    corr = (xq.zero * wsum + wq.zero * xsum - k * xq.zero * wq.zero)
+    acc = dist.all_reduce(prod - corr, group)
+    return acc.to(torch.int32).to(torch.float32) * xq.scale * wq.scale
+
+
 def qmatmul_exact(xq: QTensor, wq: QTensor, group=None) -> torch.Tensor:
     """Integer matmul with offset correction; bit-identical to what the
     in-memory MultPIM-MAC mat-vec computes on the quantized operands.
@@ -99,21 +153,59 @@ def qmatmul_exact(xq: QTensor, wq: QTensor, group=None) -> torch.Tensor:
     final ``(prod - corr)`` goes through int32 to float32 and the two
     scales, in the reference's order.
     """
-    xi = xq.q
-    wi = wq.q
-    k = xi.shape[-1]
-    _exact_bound(k, max(xq.n_bits, wq.n_bits))
-    prod = _int_matmul(xi, wi)
-    corr = (xq.zero * wi.to(torch.int64).sum(dim=0, keepdim=True)
-            + wq.zero * xi.to(torch.int64).sum(dim=-1, keepdim=True)
-            - k * xq.zero * wq.zero)
-    acc = dist.all_reduce(prod - corr, group)
-    return acc.to(torch.int32).to(torch.float32) * xq.scale * wq.scale
+    _exact_bound(xq.q.shape[-1], max(xq.n_bits, wq.n_bits))
+    prod = _int_matmul(xq.q, wq.q)
+    return _dequant(xq, wq, prod, _sums(xq.q, -1), _sums(wq.q, 0), group)
+
+
+def _weight_side(w: torch.Tensor, n_bits: int, amax=None, dense=True):
+    """The ``pim.weight`` phase: ``w`` quantized (one scale per column
+    when ``dense``, else one over the stack), its int64 sums over K and,
+    when ``dense``, its float64 levels (made after the sums, so the
+    int64 copy is freed first)."""
+    with obs.span("pim.weight") as sp:
+        if sp:
+            sp.set(bytes=w.numel() * w.element_size())
+        wq = quantize(w, n_bits, axis=0 if dense else None, amax=amax)
+        wsum = _sums(wq.q, -2)
+        return wq, wsum, (wq.q.to(torch.float64) if dense else None)
+
+
+def qlinear_exact(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
+                  x_group=None, k_group=None) -> torch.Tensor:
+    """``x`` (M, K) float times ``w`` (K, N) float in MultPIM fixed
+    point: ``x`` quantized with one scale, ``w`` with one per column,
+    each over the ranks that split it (:func:`global_amax`), then
+    :func:`qmatmul_exact` of the two over ``k_group``, bit for bit, in
+    the phase spans of the module docstring. float32 (M, N)."""
+    _exact_bound(x.shape[-1], n_bits)
+    wq = None
+    if k_group is None:              # the weight's scales are its own
+        wq, wsum, wf = _weight_side(w, n_bits)
+    with obs.span("pim.activation") as sp:
+        if sp:
+            sp.set(bytes=x.numel() * x.element_size())
+        wa = amax_of(w, 0) if wq is None else None
+        xa, wa = global_amax(amax_of(x), wa, x_group, k_group)
+        xq = quantize(x, n_bits, amax=xa)
+        xsum = _sums(xq.q, -1)
+        xf = xq.q.to(torch.float64)
+    if wq is None:
+        wq, wsum, wf = _weight_side(w, n_bits, wa)
+    with obs.span("pim.product"):
+        prod = xf @ wf
+        del xf, wf                   # freed before the cast, as in _int_matmul
+        prod = prod.to(torch.int64)
+    with obs.span("pim.dequant"):
+        return _dequant(xq, wq, prod, xsum, wsum, k_group)
 
 
 def _counts(counts: Union[torch.Tensor, Sequence[int]]) -> list:
+    """Segment lengths as ints: a tensor's are copied to the host (the
+    ``pim.dispatch`` span, one sync)."""
     if isinstance(counts, torch.Tensor):
-        counts = counts.tolist()
+        with obs.span("pim.dispatch", syncs=1):
+            counts = counts.tolist()
     return [int(c) for c in counts]
 
 
@@ -143,6 +235,24 @@ def ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor,
     return torch.cat(parts, dim=0)
 
 
+def _ragged_dequant(xq: QTensor, wq: QTensor, prod: torch.Tensor,
+                    xsum: torch.Tensor, wsum: torch.Tensor,
+                    cs: list) -> torch.Tensor:
+    """:func:`_dequant` of a ragged product: ``wsum`` (E, 1, F) the
+    per-expert column sums, spread along the segments ``cs`` (zero past
+    ``sum(cs)``); rows past ``sum(cs)`` come out zero."""
+    live = sum(cs)
+    wsum = torch.repeat_interleave(
+        wsum[:, 0], torch.tensor(cs, dtype=torch.int64,
+                                 device=wsum.device), dim=0)
+    wsum = torch.cat([wsum, wsum.new_zeros((prod.shape[0] - live,
+                                            wsum.shape[1]))])
+    y = _dequant(xq, wq, prod, xsum, wsum, None)
+    if live < y.shape[0]:
+        y[live:] = 0
+    return y
+
+
 def qragged_matmul_exact(xq: QTensor, wq: QTensor,
                          counts: Union[torch.Tensor, Sequence[int]]
                          ) -> torch.Tensor:
@@ -155,24 +265,37 @@ def qragged_matmul_exact(xq: QTensor, wq: QTensor,
     exact integers. Rows past ``sum(counts)`` are zero (the reference
     assumes counts that sum to T).
     """
-    xi = xq.q
-    wi = wq.q                                          # (E, D, F)
-    k = xi.shape[-1]
-    _exact_bound(k, max(xq.n_bits, wq.n_bits))
+    _exact_bound(xq.q.shape[-1], max(xq.n_bits, wq.n_bits))
     cs = _counts(counts)
-    prod = ragged_dot(xi, wi, cs, matmul=_int_matmul)
-    # Per-row sum_d w[expert(row), d, :]: the per-expert column sums
-    # expanded along the ragged segments (zero past sum(counts)).
-    live = sum(cs)
-    wsum = torch.repeat_interleave(
-        wi.to(torch.int64).sum(dim=1),
-        torch.tensor(cs, dtype=torch.int64, device=wi.device), dim=0)
-    wsum = torch.cat([wsum, wsum.new_zeros((xi.shape[0] - live,
-                                            wsum.shape[1]))])
-    corr = (xq.zero * wsum
-            + wq.zero * xi.to(torch.int64).sum(dim=-1, keepdim=True)
-            - k * xq.zero * wq.zero)
-    y = (prod - corr).to(torch.int32).to(torch.float32) * xq.scale * wq.scale
-    if live < y.shape[0]:
-        y[live:] = 0
-    return y
+    prod = ragged_dot(xq.q, wq.q, cs, matmul=_int_matmul)
+    return _ragged_dequant(xq, wq, prod, _sums(xq.q, -1), _sums(wq.q, -2),
+                           cs)
+
+
+def qragged_linear_exact(xs: torch.Tensor, we: torch.Tensor,
+                         counts: Union[torch.Tensor, Sequence[int]],
+                         n_bits: int = 8, x_group=None, k_group=None
+                         ) -> torch.Tensor:
+    """:func:`qlinear_exact` for the MoE dispatch: ``xs`` (T, D) float
+    expert-sorted rows, ``we`` (E, D, F) float expert stack (one scale
+    over the stack), ``counts`` (E,): :func:`qragged_matmul_exact` of
+    the two quantized, each scale over the ranks that split it, in the
+    phase spans of the module docstring."""
+    _exact_bound(xs.shape[-1], n_bits)
+    wq = None
+    if k_group is None:              # the stack's scale is its own
+        wq, wsum, _ = _weight_side(we, n_bits, dense=False)
+    with obs.span("pim.activation") as sp:
+        if sp:
+            sp.set(bytes=xs.numel() * xs.element_size())
+        wa = amax_of(we) if wq is None else None
+        xa, wa = global_amax(amax_of(xs), wa, x_group, k_group)
+        xq = quantize(xs, n_bits, amax=xa)
+        xsum = _sums(xq.q, -1)
+    if wq is None:
+        wq, wsum, _ = _weight_side(we, n_bits, wa, dense=False)
+    cs = _counts(counts)
+    with obs.span("pim.product"):
+        prod = ragged_dot(xq.q, wq.q, cs, matmul=_int_matmul)
+    with obs.span("pim.dequant"):
+        return _ragged_dequant(xq, wq, prod, xsum, wsum, cs)

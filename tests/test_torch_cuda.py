@@ -4,7 +4,8 @@ chain against exact integer results, the PIM linear layers against
 float64 oracles, and serving (resident through K1, fault-checked,
 unpacked through K2) against the plain-int reference tokens, the
 ``multpim_area`` tables, recorded command traces replayed through K1 and
-K2, a disk-loaded cache entry run through K1, the model zoo (two smoke
+K2, a disk-loaded cache entry run through K1, the PIM linear's phase
+spans with their device times, the model zoo (two smoke
 models and a full-width gemma2-9b block) against the CPU, and training
 (two smoke models' train steps against the CPU, a checkpoint restored
 onto the card, the launcher's default device), and the dry-run's
@@ -425,6 +426,72 @@ def test_linear_on_card(card):
             got[lo:lo + c].double(),
             seg * xq.scale.double() * wq.scale.double(), rtol=1e-6, atol=0)
         lo += c
+
+
+def test_pim_spans_on_card(card, tmp_path):
+    """Engine.linear and ragged_linear on the card under torch.profiler,
+    the tracer disabled: the same outputs as untraced; every PIM span
+    has its device time, each phase no more than its pim.linear; its
+    profiler twin's ts + baseTimeNanoseconds / 1e3 is the span's ts
+    within 1 ms; and each span's device time is what the profiler's
+    export gives its twin: the kernels, copies and sets launched inside
+    it (the launch's correlation id)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(64, 1024, device=card, generator=g)
+    w = torch.randn(1024, 512, device=card, generator=g)
+    we = torch.randn(4, 1024, 96, device=card, generator=g)
+    counts = torch.tensor([20, 0, 30, 14], device=card)
+    eng = Engine()
+    want = (eng.linear(x, w), eng.ragged_linear(x, we, counts))
+    obs.reset_trace()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = (eng.linear(x, w), eng.ragged_linear(x, we, counts))
+        events = [e for e in obs.events() if e["ph"] == "X"
+                  and e["name"].startswith("pim.")]
+    finally:
+        obs.reset_trace()
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    launches = {e["args"]["correlation"]: e["ts"]
+                for e in doc["traceEvents"]
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [(launches.get(e["args"].get("correlation")), e["dur"])
+              for e in doc["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    twins = {}
+    for e in sorted(doc["traceEvents"], key=lambda e: e.get("ts", 0)):
+        if e.get("cat") in ("cpu_op", "user_annotation") and \
+                e["name"].startswith("pim."):
+            us = sum(d for at, d in device if at is not None
+                     and e["ts"] <= at <= e["ts"] + e["dur"])
+            twins.setdefault(e["name"], []).append((e["ts"], us))
+    by_id = {e["id"]: e for e in events}
+    names = set()
+    for e in events:
+        names.add(e["name"])
+        us = e["args"]["device_us"]
+        assert us > 0, e
+        top = by_id.get(e["parent"])
+        if top is not None and top["name"].startswith("pim."):
+            assert us <= top["args"]["device_us"], (e, top)
+        ts, want_us = min(twins[e["name"]],
+                          key=lambda t: abs(t[0] + base_us - e["ts"]))
+        assert abs(ts + base_us - e["ts"]) < 1000.0, e["name"]
+        assert us == pytest.approx(want_us, rel=1e-3, abs=0.5), e["name"]
+    assert {"pim.linear", "pim.ragged_linear", "pim.weight",
+            "pim.activation", "pim.dispatch", "pim.product",
+            "pim.dequant"} <= names
 
 
 def _serve_trace(n_requests=32, rate=500.0):

@@ -98,11 +98,12 @@ def _main(*argv):
         obs.reset_trace()
 
 
-def test_launcher_model_mode_traces_the_profile_pass(tmp_path):
+def test_launcher_model_mode_traces_the_pim_phases(tmp_path):
     """--smoke --pim-scope full --trace: the run passes the compile-once
-    gate; the trace holds the prefill and decode spans, the
-    serve.profile_pass span with its crossbar pass under it, and the
-    groups' waterfall counter tracks."""
+    gate; the trace holds the prefill and decode spans, the model's
+    steps with each PIM projection under them and its phases under each
+    projection, and the groups' waterfall counter tracks; no crossbar
+    pass runs for the trace."""
     trace, metrics = tmp_path / "t.json", tmp_path / "m.json"
     run = _main("--pim-scope", "full", "--batch", "2", "--prompt-len", "6",
                 "--gen", "3", "--trace", str(trace), "--metrics",
@@ -110,14 +111,33 @@ def test_launcher_model_mode_traces_the_profile_pass(tmp_path):
     assert run.tokens.shape == (2, 3) and run.recompiles == 0
     assert ((run.tokens >= 0) & (run.tokens < 256)).all()
     events = json.loads(trace.read_text())["traceEvents"]
-    names = {e["name"] for e in events if e.get("ph") == "X"}
-    assert {"serve.prefill", "serve.decode_step", "serve.profile_pass",
-            "exec.group_run", "backend.kernel"} <= names
+    spans = [e for e in events if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    assert {"serve.prefill", "serve.decode_step", "model.forward",
+            "model.decode_step", "pim.linear", "pim.weight",
+            "pim.activation", "pim.product", "pim.dequant"} <= names
+    assert not names & {"exec.group_run", "backend.kernel"}
+    by_id = {e["id"]: e for e in spans}
+    steps = [e for e in spans if e["name"] == "model.decode_step"]
+    assert len(steps) == 2
+    assert by_id[steps[0]["parent"]]["name"] == "serve.decode_step"
+    for e in spans:
+        if e["name"] == "pim.linear":
+            assert by_id[e["parent"]]["name"] in ("model.forward",
+                                                  "model.decode_step")
+        if e["name"] in ("pim.weight", "pim.product"):
+            assert by_id[e["parent"]]["name"] == "pim.linear"
     tracks = [e["args"]["name"] for e in events
               if e.get("ph") == "M" and e["name"] == "process_name"]
     assert any(t.startswith("waterfall: head") for t in tracks)
     assert any(t.startswith("waterfall: ffn") for t in tracks)
     assert sum(e.get("ph") == "C" for e in events) > 0
+    # the modeled tracks start where the spans do, on the spans' clock
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    modeled = [e["ts"] for e in events
+               if e.get("ph") == "C" and e.get("pid", 1) >= 2]
+    assert min(modeled) == t0 and max(modeled) <= t1
     gauges = json.loads(metrics.read_text())["gauges"]
     assert gauges["serve.cycles_per_token"] > 0
 

@@ -80,6 +80,7 @@ def test_disabled_span_is_shared_null_span():
     assert len(t) == 0
     assert not obs.enabled()
     assert obs.span("e") is NULL_SPAN
+    assert not NULL_SPAN
 
 
 def test_span_nesting_and_attrs():
@@ -152,6 +153,247 @@ def test_add_events_while_disabled():
     t = Tracer()
     t.add_events([{"name": "x", "ph": "C", "ts": 0, "pid": 2, "args": {}}])
     assert len(t) == 1
+
+
+def _profiled(fn, tmp_path):
+    """``fn()`` under a CPU ``torch.profiler`` with the tracer disabled;
+    returns the profiler's export (its events and base) and the tracer's
+    events, and leaves the tracer empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t = obs.get_tracer()
+    t.reset()
+    assert not t.enabled
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        path = tmp_path / "prof.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text()), obs.events()
+    finally:
+        t.reset()
+        assert not torch.autograd.profiler._is_profiler_enabled
+
+
+def test_span_records_under_the_profiler_with_its_twin(tmp_path):
+    """With the tracer disabled, a span records while torch.profiler
+    records: its profiler range of the same name is in the profiler's
+    export, and the range's ts + baseTimeNanoseconds / 1e3 is the span's
+    ts (CLOCK_REALTIME microseconds), within 500 us."""
+    def work():
+        for k in range(3):             # the first ranges are the slowest
+            with obs.span(f"warm{k}"):
+                pass
+        with obs.span("timed", n=3):
+            pass
+
+    prof, events = _profiled(work, tmp_path)
+    twins = {e["name"]: e for e in prof["traceEvents"]
+             if e.get("cat") in ("cpu_op", "user_annotation")}
+    ours = {e["name"]: e for e in events if e["ph"] == "X"}
+    assert {"warm0", "warm1", "warm2", "timed"} <= set(twins) & set(ours)
+    assert ours["timed"]["args"] == {"n": 3}
+    base_us = prof["baseTimeNanoseconds"] / 1e3
+    assert abs(twins["timed"]["ts"] + base_us - ours["timed"]["ts"]) < 500
+    assert obs.span("after") is NULL_SPAN
+
+
+class _Kineto:
+    """A stand-in for one of ``torch.profiler``'s ``_KinetoEvent``s: an
+    operator or range (``op``), a runtime call linked to operator
+    ``link`` (``call``), a device operation (``gpu``) or the device's
+    copy of a user annotation (``gpu_range``)."""
+
+    def __init__(self, kind, name="", corr=0, start=0, dur=0, link=0):
+        self._kind, self._name, self._link = kind, name, link
+        self._corr, self._start, self._dur = corr, start, dur
+
+    def device_type(self):
+        import torch
+        cpu = self._kind in ("op", "call")
+        return torch.autograd.DeviceType.CPU if cpu else \
+            torch.autograd.DeviceType.CUDA
+
+    def is_user_annotation(self):
+        return self._kind == "gpu_range"
+
+    def linked_correlation_id(self):
+        return self._link
+
+    def name(self):
+        return self._name
+
+    def correlation_id(self):
+        return self._corr
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._dur
+
+
+def test_device_time_is_the_kernels_launched_inside_each_range():
+    """``_device_ns``: a range's device time sums the device operations
+    whose runtime launch starts inside it, nested ranges each counting
+    theirs; an operator whose correlation id equals a launch's does not
+    stand for it; the device's copy of a range is no device operation; a
+    launch outside every range counts nowhere; without device operations
+    there is nothing."""
+    from repro_torch.obs.trace import _device_ns
+    ev = [_Kineto("op", "pim.linear", 1, 100, 900),
+          _Kineto("op", "pim.weight", 2, 150, 300),
+          _Kineto("op", "pim.linear", 3, 2000, 500),
+          _Kineto("op", "other", 4, 0, 10 ** 6),
+          _Kineto("op", "aten::abs", 11, 5000, 10),
+          _Kineto("call", "cudaLaunchKernel", 11, 200, 5, link=5),
+          _Kineto("call", "cudaLaunchKernel", 12, 600, 5, link=6),
+          _Kineto("call", "cudaMemcpyAsync", 13, 2100, 5, link=7),
+          _Kineto("call", "cudaLaunchKernel", 14, 3000, 5, link=8),
+          _Kineto("gpu", "abs", 11, 9000, 70, link=5),
+          _Kineto("gpu", "gemm", 12, 9100, 400, link=6),
+          _Kineto("gpu", "copy", 13, 9600, 30, link=7),
+          _Kineto("gpu", "late", 14, 9700, 5, link=8),
+          _Kineto("gpu_range", "pim.linear", 1, 9000, 700)]
+    got = _device_ns(ev, {"pim.linear", "pim.weight"})
+    assert got == {"pim.linear": [[100, 1000, 470], [2000, 2500, 30]],
+                   "pim.weight": [[150, 450, 70]]}
+    assert _device_ns(ev[:9] + ev[-1:], {"pim.linear"}) == {}
+
+
+def test_profiler_stop_gives_spans_their_twins_device_time(monkeypatch,
+                                                           tmp_path):
+    """At the profiler's stop each span of that segment gets its twin's
+    device time, paired in start order per name; a name whose spans and
+    twins differ in number gets none; the stop still hands the profiler
+    its results (its export works)."""
+    from repro_torch.obs import trace
+    real = trace._device_ns
+    seen = []
+
+    def device_ns(events, names):
+        ranges = real(events, names)      # the CPU profile: no kernels
+        assert ranges == {}
+        seen.append(sorted(names))
+        return {"a": [[0, 1, 7000], [0, 1, 9000]], "b": [[0, 1, 5]]}
+
+    monkeypatch.setattr(trace, "_device_ns", device_ns)
+
+    def work():
+        for _ in range(2):
+            with obs.span("a"):
+                with obs.span("b"):
+                    pass
+                with obs.span("b"):
+                    pass
+
+    prof, events = _profiled(work, tmp_path)
+    assert seen == [["a", "b"]]
+    assert [e for e in prof["traceEvents"] if e.get("name") == "a"]
+    got = [(e["name"], e.get("args", {}).get("device_us"))
+           for e in sorted(events, key=lambda e: e["id"])]
+    assert got == [("a", 7.0), ("b", None), ("b", None), ("a", 9.0),
+                   ("b", None), ("b", None)]
+
+
+def test_span_parent_ids_nest():
+    """Every recorded span has an id; its parent is the span open around
+    it on the same thread (None at the top), siblings share a parent."""
+    t = Tracer(enabled=True)
+    with t.span("step"):
+        with t.span("a"):
+            with t.span("a1"):
+                pass
+        with t.span("b"):
+            pass
+    with t.span("next"):
+        pass
+    ev = {e["name"]: e for e in t.events() if e["ph"] == "X"}
+    assert len({e["id"] for e in ev.values()}) == 5
+    assert ev["step"]["parent"] is None and ev["next"]["parent"] is None
+    assert ev["a"]["parent"] == ev["b"]["parent"] == ev["step"]["id"]
+    assert ev["a1"]["parent"] == ev["a"]["id"]
+
+
+def _pim_tree(events):
+    """{span name: [its parent's name, ...]} of the recorded spans."""
+    spans = [e for e in events if e["ph"] == "X"]
+    by_id = {e["id"]: e for e in spans}
+    tree = {}
+    for e in spans:
+        parent = by_id.get(e["parent"], {}).get("name")
+        tree.setdefault(e["name"], []).append(parent)
+    return tree, spans
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_engine_pim_linear_span_tree(global_tracer, ragged):
+    """Engine.linear and ragged_linear in pim mode on the CPU: one
+    pim.linear (pim.ragged_linear) span with its shapes, over one span of
+    each phase (and, ragged, the counts' pim.dispatch); pim.weight holds
+    the weight's bytes, 4 K N a float32 matrix; no device times on the
+    CPU."""
+    import torch
+
+    eng = Engine(CPU)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 16, generator=g)
+    if ragged:
+        w = torch.randn(3, 16, 5, generator=g)
+        eng.ragged_linear(x, w, torch.tensor([2, 0, 3]))
+        top, args = "pim.ragged_linear", {"rows": 6, "k": 16, "n": 5,
+                                          "experts": 3, "bits": 8}
+        phases = {"pim.weight", "pim.activation", "pim.dispatch",
+                  "pim.product", "pim.dequant"}
+    else:
+        w = torch.randn(16, 5, generator=g)
+        eng.linear(x.reshape(2, 3, 16), w)
+        top, args = "pim.linear", {"rows": 6, "k": 16, "n": 5, "bits": 8}
+        phases = {"pim.weight", "pim.activation", "pim.product",
+                  "pim.dequant"}
+    tree, spans = _pim_tree(obs.events())
+    assert tree[top] == [None]
+    for name in phases:
+        assert tree[name] == [top], name
+    one = {e["name"]: e for e in spans}
+    assert one[top]["args"] == args
+    assert one["pim.weight"]["args"] == {"bytes": 4 * w.numel()}
+    assert one["pim.activation"]["args"] == {"bytes": 4 * x.numel()}
+    assert not any("device_us" in e.get("args", {}) for e in spans)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_engine_pim_linear_same_bits_traced(ragged):
+    """The phase spans change no result: linear and ragged_linear give
+    bit-identical outputs with tracing off and on."""
+    import torch
+
+    eng = Engine(CPU)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(7, 32, generator=g) * 3
+    if ragged:
+        w = torch.randn(4, 32, 9, generator=g)
+        counts = torch.tensor([3, 0, 2, 1])
+
+        def call():
+            return eng.ragged_linear(x, w, counts)
+    else:
+        w, b = torch.randn(32, 9, generator=g), torch.randn(9, generator=g)
+
+        def call():
+            return eng.linear(x, w, b)
+    off = call()
+    t = obs.get_tracer()
+    t.reset()
+    t.enable()
+    try:
+        on = call()
+        assert len(t) > 0
+    finally:
+        t.disable()
+        t.reset()
+    assert torch.equal(off, on)
 
 
 # ----------------------------------------------------------- metrics ----
