@@ -709,7 +709,11 @@ class Engine:
         the bit-serial matmul kernel K3
         (:func:`repro_torch.kernels.bitserial_matmul.bitserial_matmul`)
         in float32, as the reference takes it through its Pallas
-        kernel: exact only while ``K (2^n - 1)^2 < 2^24``.
+        kernel: exact only while ``K (2^n - 1)^2 < 2^24``. Without K3, a
+        weight whose scales are its own (no ``k_group``) is quantized
+        once and kept while it is unmodified and autograd does not
+        record through it (:mod:`repro_torch.pim.quant`), with the same
+        bits as quantizing it anew.
 
         ``x`` (..., in_dim) and ``w`` (in_dim, out_dim) are torch
         tensors on this engine's device (see :meth:`_linear_device`);

@@ -23,7 +23,13 @@ each with the device time of the kernels it launches):
   amax, :func:`quantize`, its int64 sums over K and (dense) its float64
   levels; ``args.bytes`` is the weight's bytes. On a row-parallel
   projection (``k_group``) its amax joins the activation's in one
-  collective and stays in ``pim.activation``.
+  collective and stays in ``pim.activation``. A dense weight whose
+  scales are its own keeps its quantization across calls
+  (:func:`_kept_weight_side`); on a hit the span holds only the float64
+  widening of the kept levels, with ``args`` ``{"bytes": <the levels'
+  bytes>, "cached": True}``, and the counters ``pim.weight_cache.hit``
+  and ``pim.weight_cache.miss`` count the calls that did and did not
+  find it.
 * ``pim.activation`` — the activation's amax (with the collective, when
   a group is given), quantize, its int64 row sums and (dense) float64
   levels; ``args.bytes`` is the activation's bytes.
@@ -41,6 +47,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import dist, obs
 
@@ -50,9 +57,10 @@ __all__ = ["QTensor", "amax_of", "global_amax", "quantize", "dequantize",
 
 
 class QTensor(NamedTuple):
-    """A quantized tensor: ``q`` int32 in ``[0, 2^n)``, ``scale`` float32
-    (per channel or scalar), the width ``n_bits`` and the unsigned offset
-    ``zero`` = ``2^(n-1)``."""
+    """A quantized tensor: ``q`` integer levels in ``[0, 2^n)`` (int32
+    from :func:`quantize`; a kept weight's in :func:`_level_dtype`),
+    ``scale`` float32 (per channel or scalar), the width ``n_bits`` and
+    the unsigned offset ``zero`` = ``2^(n-1)``."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -158,17 +166,61 @@ def qmatmul_exact(xq: QTensor, wq: QTensor, group=None) -> torch.Tensor:
     return _dequant(xq, wq, prod, _sums(xq.q, -1), _sums(wq.q, 0), group)
 
 
-def _weight_side(w: torch.Tensor, n_bits: int, amax=None, dense=True):
+def _weight_side(w: torch.Tensor, n_bits: int, amax=None, dense=True,
+                 levels: torch.dtype = torch.int32):
     """The ``pim.weight`` phase: ``w`` quantized (one scale per column
-    when ``dense``, else one over the stack), its int64 sums over K and,
-    when ``dense``, its float64 levels (made after the sums, so the
-    int64 copy is freed first)."""
+    when ``dense``, else one over the stack) with its levels in
+    ``levels``, its int64 sums over K and, when ``dense``, its float64
+    levels (made after the sums, so the int64 copy is freed first)."""
     with obs.span("pim.weight") as sp:
         if sp:
             sp.set(bytes=w.numel() * w.element_size())
         wq = quantize(w, n_bits, axis=0 if dense else None, amax=amax)
         wsum = _sums(wq.q, -2)
+        wq = wq._replace(q=wq.q.to(levels))
         return wq, wsum, (wq.q.to(torch.float64) if dense else None)
+
+
+# Each dense weight's quantization, kept while its base tensor lives:
+# {base: {view key: (version, QTensor, column sums)}} (_kept_weight_side).
+_KEPT = WeakIdKeyDictionary()
+
+
+def _level_dtype(n_bits: int) -> torch.dtype:
+    """The narrowest integer dtype that holds ``[0, 2^n)``."""
+    if n_bits <= 8:
+        return torch.uint8
+    return torch.int16 if n_bits <= 15 else torch.int32
+
+
+def _kept_weight_side(w: torch.Tensor, n_bits: int):
+    """:func:`_weight_side` of a dense weight whose column scales are its
+    own, quantized once and kept: the levels in :func:`_level_dtype`,
+    the int64 column sums and the scales, for every later call on the
+    same, unmodified weight, which then only widens the levels to
+    float64 (the same bits as a fresh quantization). Kept for the view
+    (offset, shape, strides, width, dtype) of its base tensor, as long as
+    the base lives, and made anew once the base's version counter moves
+    (an in-place torch write anywhere in it; a write that bypasses the
+    counter, through ``.data`` or a numpy array sharing the memory, is
+    not seen). Not kept while autograd records through ``w``, nor for an
+    inference tensor (which has no version)."""
+    if (w.requires_grad and torch.is_grad_enabled()) or w.is_inference():
+        return _weight_side(w, n_bits)
+    base = w if w._base is None else w._base
+    key = (w.storage_offset(), tuple(w.shape), w.stride(), n_bits, w.dtype)
+    kept = _KEPT.get(base, {}).get(key)
+    if kept is not None and kept[0] == w._version:
+        obs.counter("pim.weight_cache.hit").inc()
+        wq, wsum = kept[1:]
+        with obs.span("pim.weight") as sp:
+            if sp:
+                sp.set(bytes=wq.q.numel() * wq.q.element_size(), cached=True)
+            return wq, wsum, wq.q.to(torch.float64)
+    obs.counter("pim.weight_cache.miss").inc()
+    wq, wsum, wf = _weight_side(w, n_bits, levels=_level_dtype(n_bits))
+    _KEPT.setdefault(base, {})[key] = (w._version, wq, wsum)
+    return wq, wsum, wf
 
 
 def qlinear_exact(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
@@ -181,7 +233,7 @@ def qlinear_exact(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
     _exact_bound(x.shape[-1], n_bits)
     wq = None
     if k_group is None:              # the weight's scales are its own
-        wq, wsum, wf = _weight_side(w, n_bits)
+        wq, wsum, wf = _kept_weight_side(w, n_bits)
     with obs.span("pim.activation") as sp:
         if sp:
             sp.set(bytes=x.numel() * x.element_size())

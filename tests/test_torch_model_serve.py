@@ -142,6 +142,41 @@ def test_launcher_model_mode_traces_the_pim_phases(tmp_path):
     assert gauges["serve.cycles_per_token"] > 0
 
 
+def test_launcher_decode_steps_reuse_the_kept_weights(tmp_path, monkeypatch):
+    """--smoke --pim-scope full, prefill then decode: every pim.weight
+    under model.decode_step finds the weight quantized by the prefill
+    (``cached``, one hit each), and the served tokens equal those of the
+    same run with the kept quantization bypassed (every call quantizing
+    its weight anew)."""
+    from repro_torch.pim import quant
+
+    argv = ("--pim-scope", "full", "--batch", "2", "--prompt-len", "6",
+            "--gen", "4")
+    trace = tmp_path / "t.json"
+    hits = obs.counter("pim.weight_cache.hit")
+    before = hits.value
+    run = _main(*argv, "--trace", str(trace))
+    spans = [e for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("ph") == "X"]
+    by_id = {e["id"]: e for e in spans}
+
+    def in_decode(e):
+        while e is not None and e["name"] != "model.decode_step":
+            e = by_id.get(e["parent"])
+        return e is not None
+
+    weights = [e for e in spans if e["name"] == "pim.weight" and in_decode(e)]
+    assert len(weights) >= 3 * 3      # three steps of several projections
+    assert all(e["args"].get("cached") is True for e in weights)
+    assert hits.value - before == len(weights)
+    monkeypatch.setattr(quant, "_kept_weight_side",
+                        lambda w, n_bits: quant._weight_side(w, n_bits))
+    before = hits.value
+    bypassed = _main(*argv)
+    assert hits.value == before
+    np.testing.assert_array_equal(run.tokens, bypassed.tokens)
+
+
 def test_launcher_model_mode_is_deterministic():
     """Two identical runs (seed 0 parameters and prompts) give identical
     tokens."""

@@ -363,6 +363,45 @@ def test_engine_pim_linear_span_tree(global_tracer, ragged):
     assert not any("device_us" in e.get("args", {}) for e in spans)
 
 
+def _weight_cache():
+    """(hits, misses) of the PIM weight cache so far."""
+    return (obs.counter("pim.weight_cache.hit").value,
+            obs.counter("pim.weight_cache.miss").value)
+
+
+def test_engine_pim_linear_keeps_the_weight(global_tracer, monkeypatch):
+    """A dense pim-mode weight is quantized once: the first call's
+    pim.weight holds the float32 weight's bytes (4 K N) and counts a miss,
+    the second's only the widening of the kept uint8 levels (K N bytes,
+    ``cached``) and counts a hit. ragged_linear, a row-parallel call
+    (``k_group``: here a world of one, whose collectives are the
+    identity) and mode="fake" count neither, on the same weight too."""
+    import torch
+
+    from repro_torch import dist
+
+    eng = Engine(CPU)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(6, 16, generator=g)
+    w = torch.randn(16, 5, generator=g)
+    before = _weight_cache()
+    first = eng.linear(x, w)
+    assert torch.equal(eng.linear(x, w), first)
+    spans = _pim_tree(obs.events())[1]
+    assert [e["args"] for e in spans if e["name"] == "pim.weight"] == [
+        {"bytes": 4 * 16 * 5}, {"bytes": 16 * 5, "cached": True}]
+    after = _weight_cache()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    monkeypatch.setattr(dist, "max_from_parallel", lambda t, group: t)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, group, op="sum": t)
+    we, counts = torch.randn(3, 16, 5, generator=g), torch.tensor([2, 0, 3])
+    for _ in range(2):
+        eng.ragged_linear(x, we, counts)
+        assert torch.equal(eng.linear(x, w, k_group=object()), first)
+        eng.linear(x, w, mode="fake")
+    assert _weight_cache() == after
+
+
 @pytest.mark.parametrize("ragged", [False, True])
 def test_engine_pim_linear_same_bits_traced(ragged):
     """The phase spans change no result: linear and ragged_linear give

@@ -5,6 +5,7 @@ all three modes (with and without K3), ``ragged_linear``, the planner
 and ``pim_linear_apply``. Inputs are made with numpy from a seed and
 handed to both packages; each tolerance is stated with its reason."""
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ from repro.kernels.ref import (  # noqa: E402
     bitserial_matmul_ref as jax_bitserial_ref)
 from repro.pim import planner as jax_planner  # noqa: E402
 from repro.pim import quant as jq  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.convert import qtensor_from_arrays  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.kernels import bitserial_matmul, bitserial_matmul_ref  # noqa: E402
@@ -253,6 +255,89 @@ def test_linear_pim_kernel_path_pins_reference_caveat():
     assert ref_err > 0
     assert err <= 2 * ref_err
     assert err <= 1e-3 * np.abs(exact).max()
+
+
+def _fresh(x, w, bits=8):
+    """The PIM product with both operands quantized anew."""
+    return tq.qmatmul_exact(tq.quantize(x, bits),
+                            tq.quantize(w, bits, axis=0))
+
+
+def _weight_cache():
+    """(hits, misses) of the PIM weight cache so far."""
+    return (obs.counter("pim.weight_cache.hit").value,
+            obs.counter("pim.weight_cache.miss").value)
+
+
+@pytest.mark.parametrize("case", ["same", "same12", "views", "copy_",
+                                  "add_", "rebuilt", "grad", "inference"])
+def test_linear_pim_keeps_each_weight_quantized(case):
+    """mode=pim keeps a weight's quantization across calls: every output
+    equals both operands quantized anew, bit for bit. ``same``: three
+    calls on one weight, one miss then hits (``same12``: at 12 bits, the
+    levels kept as int16); ``views``: fresh ``stack[i]``
+    views of a stacked weight each round, as the model passes them;
+    ``copy_``/``add_``: an in-place write into one unit of the stack
+    moves the whole stack's version, so every unit is quantized anew and
+    the written one gives its new values' product; ``rebuilt``: a weight
+    freed and rebuilt from another seed at the same shape never hits;
+    ``grad``/``inference``: with autograd recording for ``w``, or an
+    inference tensor, nothing is kept or looked up."""
+    eng = Engine(CPU)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(5, 48, generator=g) * 2
+    stack = torch.randn(3, 48, 24, generator=g)
+    before = _weight_cache()
+
+    def call(w, bits=8):
+        y = eng.linear(x, w, mode="pim", n_bits=bits)
+        assert torch.equal(y, _fresh(x, w.detach(), bits))
+        return y
+
+    if case in ("same", "same12"):
+        w = stack[0].clone()
+        for _ in range(3):
+            call(w, 12 if case == "same12" else 8)
+        (kept,) = tq._KEPT[w].values()
+        assert kept[1].q.dtype == (torch.int16 if case == "same12"
+                                   else torch.uint8)
+        want = (2, 1)
+    elif case == "views":
+        for _ in range(3):
+            for i in range(3):
+                call(stack[i])
+        want = (6, 3)
+    elif case in ("copy_", "add_"):
+        old = [call(stack[i]) for i in range(3)]
+        if case == "copy_":
+            stack[1].copy_(torch.randn(48, 24, generator=g))
+        else:
+            stack[1].add_(0.75)
+        new = [call(stack[i]) for i in range(3)]
+        assert not torch.equal(new[1], old[1])
+        assert torch.equal(new[0], old[0]) and torch.equal(new[2], old[2])
+        want = (0, 6)
+    elif case == "rebuilt":
+        for seed in (4, 5, 6):
+            w = torch.randn(48, 24, generator=torch.Generator().manual_seed(
+                seed))
+            call(w)
+            del w
+            gc.collect()
+        want = (0, 3)
+    elif case == "grad":
+        w = stack[0].clone().requires_grad_()
+        for _ in range(2):
+            call(w)
+        want = (0, 0)
+    else:
+        with torch.inference_mode():
+            w = stack[0].clone()
+            for _ in range(2):
+                call(w)
+        want = (0, 0)
+    hits, misses = _weight_cache()
+    assert (hits - before[0], misses - before[1]) == want
 
 
 def test_linear_refuses_operands_off_the_engine_device():
