@@ -1,6 +1,7 @@
-"""Every token generated in the window (every sequence: a prefill's
-first token and a decode step's each), over the window's seconds; a
-prefill that falls in the window counts its time."""
+"""Every token that the window's decode steps generated, over the
+window's seconds: decode-step time. A new job's prefill, which runs
+between two steps when the last job is done, is kept off both (its token
+is not counted, its seconds are not on the clock)."""
 
 
 def read(run):

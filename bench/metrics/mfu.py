@@ -1,6 +1,9 @@
 """Model FLOPs of the window's tokens (``pimbench.work.model_flops``:
 2 per active parameter a token, attention's 4 q_dim an attended position
-a layer) over the window's seconds and the card's int8 peak, in %."""
+a layer) over the window's seconds and the card's int8 peak, in %. A
+window holds one phase: a prefill cell's prompt tokens, or a decode
+cell's generated tokens over decode-step time (a new job's prefill is
+kept off it, its tokens and its seconds alike)."""
 from pimbench.work import PEAK_OPS, model_flops
 
 

@@ -1,5 +1,6 @@
-"""The card's peak allocated memory in the window (the allocator's peak,
-reset at the end of set-up), in GiB."""
+"""The card's peak allocated memory over the window's steps (the
+allocator's peak, reset at the end of set-up and after each prefill kept
+off a decode window, and read before it), in GiB."""
 
 
 def read(run):

@@ -13,6 +13,12 @@ a window can open after a job's prefill and close between two steps. The
 one thing it adds to ``serve_model``'s prefill is the greedy choice at
 every prompt position (an argmax of the logits the prefill made anyway),
 kept on the card for the comparison with the reference.
+
+A window times one phase. With whole jobs as its unit it holds every
+call. With decode steps as its unit, a new job's prefill still runs
+through the same path when the last job is done, and its tokens are
+served and can be compared, but it is kept off the window: not among
+its steps, its seconds not on its clock, and its memory not in its peak.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["Step", "Job", "Server"]
+__all__ = ["Step", "Job", "Window", "Server"]
 
 
 @dataclass
@@ -71,6 +77,23 @@ class Job:
         return np.concatenate(self.served, axis=1)
 
 
+@dataclass
+class Window:
+    """What :meth:`Server.run` timed. ``steps``: the calls on the window's
+    clock; ``seconds``: that clock, the host clock from the window's start
+    to its last step's end less every call kept off it (the steps'
+    seconds and the loop's few microseconds between them);
+    ``kept_off``: the prefills kept off it; ``peak_bytes``: the
+    card's peak allocated memory over the window's steps (0 off a card);
+    ``kept_off_peak_bytes``: that over the prefills kept off."""
+
+    steps: List[Step]
+    seconds: float
+    kept_off: List[Step] = field(default_factory=list)
+    peak_bytes: int = 0
+    kept_off_peak_bytes: int = 0
+
+
 class Server:
     """Serves jobs of ``traffic``'s shape one after another on ``model``
     with ``params``, prompts from ``prompts`` (a
@@ -91,6 +114,7 @@ class Server:
         self.greedy_token = greedy_token
         self.jobs: List[Job] = []
         self.clock = time.perf_counter
+        self.cuda = torch.device(prompts.device).type == "cuda"
 
     @property
     def current(self) -> Optional[Job]:
@@ -148,29 +172,64 @@ class Server:
         return Step("decode", job.index, t0, t1, b, 0, b * (p + 1))
 
     def warm_up(self, unit: str) -> int:
-        """Set-up's calls: the first job's prefill and one decode step,
-        which warm both shapes, and with whole jobs as the ``unit`` the
-        rest of that job. Returns the index of the first job a window
-        then serves whole (0 when the window goes on with the first)."""
+        """Set-up's calls: the first job's prefill and, where the job has
+        decode steps, one of them, which warm both shapes; with whole jobs
+        as the ``unit``, the rest of that job. Returns the index of the
+        first job a window then serves whole (0 when the window goes on
+        with the first)."""
         self.advance()
-        self.advance()
+        if not self.job_done():
+            self.advance()
         while unit == "job" and not self.job_done():
             self.advance()
         return len(self.jobs) if unit == "job" else 0
 
-    def run(self, seconds: float, unit: str) -> List[Step]:
-        """Calls until ``seconds`` have passed on the host clock, then on
-        to the end of the step (``unit`` ``"step"``) or of the job
-        (``"job"``) in progress."""
+    def make_room(self, steps: int) -> None:
+        """Calls off any window until the newest job has at least
+        ``steps`` decode steps left (at most a job's): where it has
+        fewer, the rest of it and the next job's prefill."""
+        left = 0 if self.job_done() else self.gen - self.current.n_served
+        if left >= min(steps, self.gen - 1):
+            return
+        while not self.job_done():
+            self.advance()
+        self.advance()
+
+    def _peak(self) -> int:
+        return torch.cuda.max_memory_allocated() if self.cuda else 0
+
+    def run(self, seconds: float, unit: str, *,
+            new_jobs: bool = True) -> Window:
+        """Calls until the window's clock reads ``seconds``, then on to
+        the end of the step (``unit`` ``"step"``) or of the job
+        (``"job"``) in progress. With ``"step"``, a new job's prefill is
+        kept off the window (the module docstring), or, without
+        ``new_jobs``, the window ends at the newest job's end instead."""
         if unit not in ("step", "job"):
             raise ValueError(f"window unit {unit!r}")
+        win = Window([], 0.0)
         t0 = self.clock()
-        steps = []
+        off = 0.0
         while True:
-            steps.append(self.advance())
-            if self.clock() - t0 >= seconds and (unit == "step"
-                                                 or self.job_done()):
-                return steps
+            if unit == "step" and self.job_done():
+                if not new_jobs:
+                    break
+                win.peak_bytes = max(win.peak_bytes, self._peak())
+                a = self.clock()
+                win.kept_off.append(self.advance())
+                off += self.clock() - a
+                win.kept_off_peak_bytes = max(win.kept_off_peak_bytes,
+                                              self._peak())
+                if self.cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                continue
+            win.steps.append(self.advance())
+            if self.clock() - t0 - off >= seconds and (unit == "step"
+                                                       or self.job_done()):
+                break
+        win.seconds = (win.steps[-1].t1 - t0 - off) if win.steps else 0.0
+        win.peak_bytes = max(win.peak_bytes, self._peak())
+        return win
 
     def release(self) -> None:
         """Drop the program's state (the caches and the last token)."""

@@ -15,10 +15,12 @@ a traffic mix or a metric therefore adds files and entries and edits
 none.
 
 One run: set-up (the model built on the card, weights and prompts drawn
-from ``--seed``, the cell's prefill and decode shapes warmed), the
-measured window of ``--seconds`` (tracing off), with ``--trace 1`` a
-profiled segment after it, then the comparison of what the timed path
-served with the plain reference. The last line on standard output is
+from ``--seed``, the shapes of the cell's traffic warmed), the measured
+window of ``--seconds`` of the phase the cell is named for (tracing
+off; ``pimbench.serving``: a decode cell's clock stops over a new job's
+prefill), with ``--trace 1`` a profiled segment of the same phase after
+it, then the comparison of what the timed path served with the plain
+reference. The last line on standard output is
 the result as one JSON object; the numbers compared and their limits
 are the last lines on standard error. Without the cards the cell asks
 for it prints no result and exits 3; if a module of JAX, flax or the JAX
@@ -74,6 +76,7 @@ class Run:
     steps: List[Any]
     jobs: List[Any]
     peak_window_bytes: int
+    kept_off: List[Any] = field(default_factory=list)
     trace: Any = None
     traced_steps: List[Any] = field(default_factory=list)
     calls: List[Any] = field(default_factory=list)
@@ -136,6 +139,7 @@ def run_cell(cell: Dict[str, Any], spec: Dict[str, Any],
     configuration states (its own lower path, the comparison's control);
     the reference keeps the configuration's."""
     import dataclasses
+    import statistics
 
     import torch
     from pimbench.check import combine, gaps, judge, pick_jobs
@@ -182,16 +186,21 @@ def run_cell(cell: Dict[str, Any], spec: Dict[str, Any],
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - T_START
 
-    t0 = time.perf_counter()
-    steps = server.run(seconds, unit)
-    window_s = steps[-1].t1 - t0
-    peak_window = torch.cuda.max_memory_allocated() if cuda else 0
-    run = Run(cell, cfg, traffic, setup_s, window_s, steps, server.jobs,
-              peak_window, marks=marks)
+    window = server.run(seconds, unit)
+    peak = max(peak, window.kept_off_peak_bytes)
+    run = Run(cell, cfg, traffic, setup_s, window.seconds, window.steps,
+              server.jobs, window.peak_bytes, kept_off=window.kept_off,
+              marks=marks)
     if trace:
+        trace_s = float(traffic["trace_seconds"])
+        if unit == "step":
+            # Room for the segment's decode steps (a traced step is
+            # slower) in the job, so that no prefill falls inside it.
+            step_s = statistics.median(st.seconds for st in window.steps)
+            server.make_room(int(3 * trace_s / step_s) + 1)
         engine.calls = []
         run.traced_steps, run.trace = profile(
-            lambda: server.run(float(traffic["trace_seconds"]), unit))
+            lambda: server.run(trace_s, unit, new_jobs=False).steps)
         run.calls = [c[:5] + (_ints(c[5]),) for c in engine.calls]
         engine.calls = None
     if cuda:
@@ -291,7 +300,10 @@ def report(cell: Dict[str, Any], metrics: List[Dict[str, Any]],
     ms = sorted(st.seconds * 1e3 for st in run.steps)
     print(f"set-up marks (s from start): {json.dumps(run.marks)}; "
           f"{len(ms)} window steps, ms min {ms[0]:.1f} median "
-          f"{ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}", file=sys.stderr)
+          f"{ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}; "
+          f"{len(run.kept_off)} prefills kept off the window "
+          f"({sum(st.seconds for st in run.kept_off):.3f} s); "
+          f"window peak {run.peak_window_bytes} B", file=sys.stderr)
     print("host " + json.dumps({"decode": summary(run.steps)}),
           file=sys.stderr)
     print("readings " + json.dumps(out["readings"]), file=sys.stderr)
